@@ -1,0 +1,139 @@
+"""Build and load the port's CUDA kernels.
+
+The sources under ``csrc/`` are compiled by ``nvcc`` for Hopper
+(``sm_90a``) into one shared library with a plain C interface, loaded with
+ctypes: pointers and the stream go in as ``c_void_p``, and every entry
+point returns the ``cudaError_t`` of its launches, which ``check`` turns
+into an exception. The library is built into the git-ignored ``build/``
+directory on first use, in the process that launches a kernel; nothing is
+built when a module is imported.
+
+The flags leave out ``--use_fast_math`` (IEEE ``logf``, ``sqrtf`` and
+division) and add ``-fmad=false``: the transport kernel must round like its
+plain PyTorch version, whose multiplies and adds are separate kernels. The
+other two kernels do integer work only, so the flag does not touch them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "build"
+SOURCES = ("transport.cu", "deposit.cu", "sort_rows.cu")
+LIBRARY = "libattpc_kernels.so"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_state: dict = {"lib": None, "path": None, "build_seconds": None}
+
+
+def nvcc() -> str:
+    """Path of nvcc: $CUDA_HOME/bin, then /usr/local/cuda/bin, then PATH."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(Path(os.environ["CUDA_HOME"]) / "bin" / "nvcc")
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.exists():
+            return str(c)
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def build() -> Path:
+    """Compile every source into ``build/libattpc_kernels.so`` and return its
+    path. Raises with nvcc's output if the build fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / LIBRARY
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *(str(CSRC / s) for s in SOURCES)]
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if res.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                f"{res.stdout}\n{res.stderr}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    _state["build_seconds"] = time.perf_counter() - t0
+    _state["path"] = out
+    return out
+
+
+def build_seconds() -> float | None:
+    """Seconds the last ``build`` in this process took (None if none ran)."""
+    return _state["build_seconds"]
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+                         ctypes.c_float)
+    lib.attpc_rk4_window.argtypes = (
+        [vp] * 7 + [i32, i32] + [vp] * 3 + [i32, i32] + [f32] * 15 + [vp]
+    )
+    lib.attpc_packed_key_lookup.argtypes = [vp] * 5 + [i64, i32, i32, vp]
+    lib.attpc_sort_rows_i64.argtypes = [vp, vp, vp, i32, i64, i64, vp]
+    for fn in (lib.attpc_rk4_window, lib.attpc_packed_key_lookup,
+               lib.attpc_sort_rows_i64):
+        fn.restype = ctypes.c_int
+    lib.attpc_error_string.argtypes = [i32]
+    lib.attpc_error_string.restype = ctypes.c_char_p
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use in this process."""
+    if _state["lib"] is None:
+        lib = ctypes.CDLL(str(_state["path"] or build()))
+        _declare(lib)
+        _state["lib"] = lib
+    return _state["lib"]
+
+
+def check(err: int, kernel: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = library().attpc_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {kernel} failed: {msg} ({err})")
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t: torch.Tensor) -> ctypes.c_void_p:
+    """The current PyTorch stream of ``t``'s device."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype,
+            shape: tuple[int, ...] | None = None) -> None:
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` (and
+    ``shape``): the kernels take nothing else."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")

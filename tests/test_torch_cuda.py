@@ -1,0 +1,150 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here needs an NVIDIA GPU and nvcc: marked ``cuda``, each skips
+where ``torch.cuda.is_available()`` is false. This file imports nothing of
+the JAX package (the card's Python needs neither jax nor h5py for it):
+
+    python -m pytest -q tests/test_torch_cuda.py
+
+Bounds: K1 alive flags exact, positions within 1e-6 m, |dKE| within
+1e-4 MeV (tests/test_transport_pallas.py); K2 and K3 bit-exact. A wrapper
+given a CUDA tensor it cannot take raises: nothing falls back.
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from attpc_engine_tpu_torch import nuclear_map
+from attpc_engine_tpu_torch.detector import (
+    Config,
+    DetectorParams,
+    DetectorSimulator,
+    ElectronicsParams,
+    EngineParams,
+    PadParams,
+)
+from attpc_engine_tpu_torch.detector import (
+    deposit_cuda,
+    sort_cuda,
+    transport_cuda,
+)
+from attpc_engine_tpu_torch.detector import transport as T
+from attpc_engine_tpu_torch.detector.deposition import _pack64
+from attpc_engine_tpu_torch.nuclear import GasTarget
+
+pytestmark = pytest.mark.cuda
+
+SMOKE = (Path(__file__).resolve().parents[1] / "attpc_engine_tpu_torch"
+         / "data" / "smoke_kinematics.npz")
+SENT = 2**31 - 1
+
+
+@pytest.fixture
+def cuda_device():
+    """The card; skips where there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    return torch.device("cuda")
+
+
+def _simulator(device, **engine):
+    gas = GasTarget([(1, 2, 2)], 300.0, nuclear_map)
+    config = Config(
+        DetectorParams(1.0, 45000.0, 2.85, 175000, gas, 0.277, 0.2, 34.0),
+        ElectronicsParams(6.25, 900, 1000, 10, 560, 40),
+        PadParams(),
+    )
+    data = np.load(SMOKE)
+    sim = DetectorSimulator(config, data["proton_numbers"],
+                            data["mass_numbers"],
+                            engine=EngineParams(**engine), device=device)
+    return sim, data["vertices"], data["momenta"]
+
+
+def test_transport_kernel_matches_plain(cuda_device):
+    sim, vert, mom = _simulator(cuda_device)
+    e, k, steps = 64, sim.k_tracks, 500
+    p3 = mom[:e, sim.sim_indices, :3]
+    gv0 = torch.from_numpy((p3 / sim.track_masses[None, :, None])
+                           .astype(np.float32).reshape(-1, 3)).cuda()
+    pos0 = torch.from_numpy(np.repeat(vert[:e].astype(np.float32), k,
+                                      axis=0)).cuda()
+    s_idx = torch.arange(k, dtype=torch.int32).repeat(e).cuda()
+    mass, q_m = T.track_constants(sim.species, s_idx)
+    dp = sim.config.det_params
+    kc = T.Rk4Constants.make(sim.species, float(dp.gas_target.density),
+                             float(dp.bfield), float(dp.efield), 1e-10)
+    outs = []
+    for fn in (T.rk4_window_plain, transport_cuda.rk4_window_cuda):
+        state = (pos0.clone(), gv0.clone(), T.initial_alive(pos0, gv0, mass))
+        out = (torch.zeros((steps, e * k, 3), device="cuda"),
+               torch.zeros((steps, e * k), device="cuda"),
+               torch.zeros((steps, e * k), dtype=torch.bool, device="cuda"))
+        fn(*state, s_idx, mass, q_m, sim.species.dedx, *out, kc)
+        outs.append(out + state)
+    (pr, dr, ar, *cr), (pg, dg, ag, *cg) = outs
+    assert torch.equal(ar, ag) and ar.any()
+    assert float((pr - pg).abs()[ar].max()) < 1e-6
+    assert float((dr - dg).abs()[ar].max()) < 1e-4
+    assert torch.equal(cr[2], cg[2])  # the carried alive flags
+
+
+@pytest.mark.parametrize("w", [2, 300, 16384, 40000, 102400])
+def test_sort_kernel_matches_torch_sort(cuda_device, w):
+    rng = np.random.default_rng(w)
+    hi = rng.integers(0, 7, (4, w)).astype(np.int32) * 1000
+    hi[rng.random((4, w)) < 0.3] = SENT
+    lo = np.float32(rng.random((4, w)) * 100)
+    x = _pack64(torch.from_numpy(hi), torch.from_numpy(lo)).to(cuda_device)
+    x[1] = 2**63 - 1  # a row of sentinels
+    x[2] = -x[2]  # signed keys
+    got = sort_cuda.sort_rows(x)
+    assert torch.equal(got, torch.sort(x, dim=1).values)
+
+
+def test_sort_kernel_rejects_what_it_cannot_take(cuda_device):
+    with pytest.raises(ValueError):
+        sort_cuda.sort_rows(torch.zeros((2, 8), dtype=torch.int32,
+                                        device=cuda_device))
+    with pytest.raises(ValueError):
+        sort_cuda.sort_rows(torch.zeros((8, 2), dtype=torch.int64,
+                                        device=cuda_device).t())
+
+
+def test_deposit_kernel_matches_plain(cuda_device):
+    sim, _, _ = _simulator(cuda_device)
+    rng = np.random.default_rng(1)
+    p = 5000
+    ix = rng.integers(-5, 565, (p, 10)).astype(np.int32)
+    iy = rng.integers(-5, 645, (p, 10)).astype(np.int32)
+    ix[rng.random((p, 10)) < 0.1] = 559
+    iy[rng.random((p, 10)) < 0.1] = 639
+    tbr = rng.integers(0, 1024, p).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (ix, iy, tbr)]
+    ref = deposit_cuda.packed_key_lookup_plain(*args, sim.pad_table, 1, SENT)
+    got = deposit_cuda.packed_key_lookup(*args, sim.pad_table, 1, SENT)
+    assert torch.equal(got, ref)
+    with pytest.raises(ValueError):  # wrong dtype: raise, no fallback
+        deposit_cuda.packed_key_lookup(args[0].long(), *args[1:],
+                                       sim.pad_table, 1, SENT)
+
+
+def test_step_on_card_agrees_with_cpu(cuda_device):
+    """Eight flagship events through the kernels and through the plain
+    versions on the CPU: the devices round logf differently, so per event
+    the kept and merged row counts agree within 2 % and the total kept
+    charge within 1 %."""
+    kw = dict(n_time_steps=1000, events_per_batch=8)
+    outs = []
+    for device in (cuda_device, "cpu"):
+        sim, vert, mom = _simulator(device, **kw)
+        out = sim.simulate_batch(vert[:8], mom[:8], seed=1)
+        outs.append((out["meta_i32"].cpu().numpy(),
+                     out["spyral"][:, 4].sum()))
+    (mg, qg), (mc, qc) = outs
+    np.testing.assert_allclose(mg[:8], mc[:8], rtol=0.02)
+    np.testing.assert_allclose(mg[16:24], mc[16:24], rtol=0.02)
+    assert abs(qg - qc) <= 0.01 * qc
