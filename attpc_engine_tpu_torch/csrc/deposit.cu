@@ -1,22 +1,32 @@
-// K2: pad lookup and merge-key packing for the 10x10 diffusion mesh.
+// K2, K6 and K7: pad lookups over the 10x10 diffusion mesh.
 //
-// Replaces the Pallas kernel attpc_engine_tpu/detector/deposit_pallas.py
-// `_packed_kernel_2s` (called by packed_key_lookup_2s_pallas), with the
-// same contract: for deposit point p and mesh pixel (i, j), read the pad id
-// of the 1-mm cell (ix[p, i], iy[p, j]) and emit
+// K2 replaces the Pallas kernel attpc_engine_tpu/detector/deposit_pallas.py
+// `_packed_kernel_2s` (called by packed_key_lookup_2s_pallas), and K6 the
+// kernel `_packed_kernel` (called by packed_key_lookup_pallas). The two TPU
+// kernels share one contract and differ only in machine mapping; so do
+// these two. For deposit point p and mesh pixel (i, j), read the pad id of
+// the 1-mm cell (ix[p, i], iy[p, j]) and emit
 //   ((pad * 512 + tb) << rank_bits) | rank  ==  pad * (512 << rank_bits) + tbr[p]
 // or `sentinel` where the cell is vetoed, a hole or off the plane. The
 // caller has already aliased invalid pixels onto the table's sentinel
 // padding (cell (559, 639)); indices are clamped here only to keep every
 // read inside the table.
 //
-// What bounds it on the card: bytes. Per output key it reads about 0.8 B of
-// indices (ix and iy are shared by 10 pixels each) and writes 4 B, so at
-// the flagship 39.3 M keys it moves ~190 MB; the 1.43 MB pad-id table is
-// read at random but stays in the 50 MB L2. The TPU kernel's one-hot matrix
-// products and bf16 planes only worked around the TPU's slow gathers;
-// here one thread per output key does one cached gather and one coalesced
-// store. The int32 table holds pad ids, no bit splitting.
+// K7 replaces `_lookup_kernel` (called by pad_lookup_pallas): the pad ids
+// themselves, PAD_ID_SENTINEL (10240) where vetoed, with ix clipped into
+// [0, 559] and iy into [0, 639] as pad_lookup_pallas clips them, so
+// out-of-plane pixels alias onto edge cells; masking them is the caller's
+// job.
+//
+// What bounds them on the card: bytes. Per output key K2 and K6 read about
+// 0.8 B of indices (ix and iy are shared by 10 pixels each) and write 4 B,
+// so at the flagship 39.3 M keys they move ~190 MB; K7 moves the same less
+// tbr. The 1.43 MB pad-id table is read at random but stays in the 50 MB
+// L2. The TPU kernels' one-hot matrix products and bf16 planes only worked
+// around the TPU's slow gathers; here K2 runs one thread per output key
+// (one cached gather, one coalesced store), and K6 and K7 one thread per
+// (point, x cell) row (one ix, ten iy, ten gathers along one table row, ten
+// consecutive outputs). The int32 table holds pad ids, no bit splitting.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,6 +54,46 @@ __global__ void packed_key_lookup_kernel(
   out[idx] = pad < kPadSentinel ? pad * pad_mult + __ldg(&tbr[p]) : sentinel;
 }
 
+// One thread per (point, x cell) row r = p * 10 + i: the row's ten keys.
+__global__ void packed_key_lookup_rows_kernel(
+    const int32_t* __restrict__ ix, const int32_t* __restrict__ iy,
+    const int32_t* __restrict__ tbr, const int32_t* __restrict__ table,
+    int32_t* __restrict__ out, int64_t n_rows, int pad_mult, int32_t sentinel) {
+  int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rows) return;
+  int64_t p = r / kMesh;
+  int x = min(max(__ldg(&ix[r]), 0), kNx - 1);
+  const int32_t* trow = table + x * kNy;
+  int32_t t = __ldg(&tbr[p]);
+  int32_t* o = out + r * kMesh;
+#pragma unroll
+  for (int j = 0; j < kMesh; ++j) {
+    int y = min(max(__ldg(&iy[p * kMesh + j]), 0), kNy - 1);
+    int pad = __ldg(&trow[y]);
+    o[j] = pad < kPadSentinel ? pad * pad_mult + t : sentinel;
+  }
+}
+
+// The same row mapping, pad ids only.
+__global__ void pad_lookup_kernel(const int32_t* __restrict__ ix,
+                                  const int32_t* __restrict__ iy,
+                                  const int32_t* __restrict__ table,
+                                  int32_t* __restrict__ out, int64_t n_rows) {
+  int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= n_rows) return;
+  int64_t p = r / kMesh;
+  int x = min(max(__ldg(&ix[r]), 0), kNx - 1);
+  const int32_t* trow = table + x * kNy;
+  int32_t* o = out + r * kMesh;
+#pragma unroll
+  for (int j = 0; j < kMesh; ++j) {
+    int y = min(max(__ldg(&iy[p * kMesh + j]), 0), kNy - 1);
+    o[j] = __ldg(&trow[y]);
+  }
+}
+
+constexpr int kThreads = 256;
+
 }  // namespace
 
 // ix, iy [P, 10] int32; tbr [P] int32; table [560, 640] int32;
@@ -55,12 +105,42 @@ extern "C" int attpc_packed_key_lookup(const void* ix, const void* iy,
                                        void* stream) {
   int64_t n_out = n_points * kMesh * kMesh;
   if (n_out <= 0) return (int)cudaSuccess;
-  const int threads = 256;
-  int64_t blocks = (n_out + threads - 1) / threads;
-  packed_key_lookup_kernel<<<(unsigned)blocks, threads, 0,
+  int64_t blocks = (n_out + kThreads - 1) / kThreads;
+  packed_key_lookup_kernel<<<(unsigned)blocks, kThreads, 0,
                              (cudaStream_t)stream>>>(
       (const int32_t*)ix, (const int32_t*)iy, (const int32_t*)tbr,
       (const int32_t*)table, (int32_t*)out, n_out, 512 << rank_bits,
       sentinel);
+  return (int)cudaGetLastError();
+}
+
+// K6: arguments as attpc_packed_key_lookup.
+extern "C" int attpc_packed_key_lookup_rows(const void* ix, const void* iy,
+                                            const void* tbr, const void* table,
+                                            void* out, int64_t n_points,
+                                            int rank_bits, int32_t sentinel,
+                                            void* stream) {
+  int64_t n_rows = n_points * kMesh;
+  if (n_rows <= 0) return (int)cudaSuccess;
+  int64_t blocks = (n_rows + kThreads - 1) / kThreads;
+  packed_key_lookup_rows_kernel<<<(unsigned)blocks, kThreads, 0,
+                                  (cudaStream_t)stream>>>(
+      (const int32_t*)ix, (const int32_t*)iy, (const int32_t*)tbr,
+      (const int32_t*)table, (int32_t*)out, n_rows, 512 << rank_bits,
+      sentinel);
+  return (int)cudaGetLastError();
+}
+
+// K7: ix, iy [P, 10] int32; table [560, 640] int32; out [P, 10, 10] int32
+// pad ids. Returns the cudaError_t of the launch.
+extern "C" int attpc_pad_lookup(const void* ix, const void* iy,
+                                const void* table, void* out,
+                                int64_t n_points, void* stream) {
+  int64_t n_rows = n_points * kMesh;
+  if (n_rows <= 0) return (int)cudaSuccess;
+  int64_t blocks = (n_rows + kThreads - 1) / kThreads;
+  pad_lookup_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)ix, (const int32_t*)iy, (const int32_t*)table,
+      (int32_t*)out, n_rows);
   return (int)cudaGetLastError();
 }

@@ -14,11 +14,13 @@ reasoning behind each step):
    ``point_budget`` slots, with the overflow counted,
 3. the 10x10 diffusion mesh around each point: pixel coordinates, pixel
    charges, and the merge key ((pad * 512 + tb) << rank_bits) | rank of
-   every pixel from the pad-id table (``deposit_cuda.packed_key_lookup``,
-   K2),
-4. the per-event merge of equal (pad, tb) keys (``_merge_runs``: two row
-   sorts through ``sort_cuda.sort_rows``, K3, and a prefix sum), the last
-   writer's label, and the overflow counters.
+   every pixel from the pad-id table (``lookup="two_stage"``:
+   ``deposit_cuda.packed_key_lookup``, K2; ``"one_stage"``:
+   ``deposit_cuda.packed_key_lookup_rows``, K6),
+4. the per-event merge of equal (pad, tb) keys (``_merge_runs``; with
+   ``merge="sorts"`` two row sorts through ``sort_cuda.sort_rows``, K3,
+   and a prefix sum; with ``"fused"`` ``merge_cuda.merge_runs_fused``, K5),
+   the last writer's label, and the overflow counters.
 """
 
 from __future__ import annotations
@@ -28,9 +30,11 @@ import math
 import numpy as np
 import torch
 
-from .deposit_cuda import packed_key_lookup
+from ..kernels import require_device
+from .deposit_cuda import packed_key_lookup, packed_key_lookup_rows
+from .merge_cuda import KEY_SENTINEL, fits_fused, merge_runs_fused
 from .parameters import PAD_TABLE_NX, PAD_TABLE_NY
-from .sort_cuda import sort_rows
+from .sort_cuda import pack64, sort_rows, unpack64
 
 __all__ = [
     "philox4x32",
@@ -41,11 +45,16 @@ __all__ = [
     "MESH_STEPS",
     "MESH_1D",
     "KEY_SENTINEL",
+    "MERGES",
+    "LOOKUPS",
 ]
 
 MESH_STEPS = 10  # reference transporter.py:8
 NUM_TB = 512
-KEY_SENTINEL = 2**31 - 1
+# merge="sorts" | "fused" and lookup="two_stage" | "one_stage": the JAX
+# package's pallas_sort (True | "fused") and lookup_two_stage (True | False)
+MERGES = ("sorts", "fused")
+LOOKUPS = ("two_stage", "one_stage")
 # The mesh offsets in sigma units, -3 .. 3, as the JAX package's compiled
 # detector program computes jnp.linspace(-3, 3, 10, dtype=float32) at run
 # time (four values differ by one ulp from an eager jnp.linspace, and
@@ -110,8 +119,9 @@ def philox_normal(counter: list[torch.Tensor],
 
 def fano_noise(seed: int, event_start: int, n_events: int, tracks: int,
                n_steps: int, chunk_steps: int,
-               device: torch.device | str = "cpu") -> torch.Tensor:
-    """Standard normal Fano noise [n_steps, n_events * tracks] f32.
+               device: torch.device | str = "cuda") -> torch.Tensor:
+    """Standard normal Fano noise [n_steps, n_events * tracks] f32, made on
+    ``device`` (the card unless the caller asks for the CPU).
 
     The draw of step t, track k of the event with global id g is normal
     number j = (t % chunk_steps) * tracks + k of the Philox stream with key
@@ -119,6 +129,7 @@ def fano_noise(seed: int, event_start: int, n_events: int, tracks: int,
     seed high word). It depends only on (seed, g, t, k) and chunk_steps:
     not on the batch grid, and a longer window only appends steps.
     """
+    device = require_device(device)
     cs = min(chunk_steps, n_steps)
     n_chunks = -(-n_steps // cs)
     per_chunk = cs * tracks
@@ -206,22 +217,8 @@ def _sequential_prefix(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _pack64(key: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
-    """Nonnegative int32 key in the high word, the f32 value's bits in the
-    low word (deposition.py:241-249): for nonnegative values int64 order is
-    (key, value) order."""
-    return (key.to(torch.int64) << 32) | (
-        val.contiguous().view(torch.int32).to(torch.int64) & _MASK32
-    )
-
-
-def _unpack64(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    lo = ((g & _MASK32) ^ 0x80000000) - 0x80000000  # signed low word
-    return (g >> 32).to(torch.int32), lo.to(torch.int32).view(torch.float32)
-
-
 def _merge_runs(packed: torch.Tensor, qv: torch.Tensor, cap: int,
-                rank_bits: int):
+                rank_bits: int, merge: str = "sorts"):
     """Merge per-row entries with equal (packed >> rank_bits) keys
     (deposition.py:176-299, the pack64 formulation).
 
@@ -229,30 +226,43 @@ def _merge_runs(packed: torch.Tensor, qv: torch.Tensor, cap: int,
     qv [E, W] f32 nonnegative charges. Returns (key2 [E, cap] ascending with
     sentinel padding, sums [E, cap], valid2 [E, cap], n_uniq [E] — the
     unique count before capping).
+
+    ``merge="sorts"``: two row sorts (K3) around a prefix associated as
+    XLA's CPU cumsum. ``"fused"``: K5 (``merge_cuda.merge_runs_fused``),
+    whose prefix associates as the Pallas fused kernel's, for rows within
+    ``fits_fused``; wider rows keep the sorts path, as the JAX package's
+    width rule does (deposition.py:221-229). The integers are the same on
+    both paths; the sums may differ by ulps of the running prefix.
     """
+    if merge not in MERGES:
+        raise ValueError(f"merge={merge!r}: expected one of {MERGES}")
     e = packed.shape[0]
     cap = min(cap, packed.shape[1])
 
-    def sort2(key, val):
-        return _unpack64(sort_rows(_pack64(key, val)))
+    if merge == "fused" and fits_fused(packed.shape[1]):
+        key2, c2, n_uniq = merge_runs_fused(packed, qv, cap, rank_bits)
+    else:
+        def sort2(key, val):
+            return unpack64(sort_rows(pack64(key, val)))
 
-    packed, qq = sort2(packed, qv)
-    # the deposition-last writer of a run sorts last: rank rides in the
-    # key's low bits
-    last = _run_last(packed >> rank_bits)
-    real_last = last & (packed != KEY_SENTINEL)
-    n_uniq = real_last.sum(dim=1, dtype=torch.int32)
+        packed, qq = sort2(packed, qv)
+        # the deposition-last writer of a run sorts last: rank rides in the
+        # key's low bits
+        last = _run_last(packed >> rank_bits)
+        real_last = last & (packed != KEY_SENTINEL)
+        n_uniq = real_last.sum(dim=1, dtype=torch.int32)
 
-    # inclusive prefix of the sorted charges; dead lanes carry 0
-    c = _prefix_sum(qq)
+        # inclusive prefix of the sorted charges; dead lanes carry 0
+        c = _prefix_sum(qq)
 
-    # compact the run ends (c is nondecreasing and run ends are already in
-    # key order, so the sort keeps the prefix order)
-    k2_full, c2_full = sort2(
-        torch.where(real_last, packed, torch.full_like(packed, KEY_SENTINEL)),
-        torch.where(real_last, c, torch.zeros_like(c)),
-    )
-    key2, c2 = k2_full[:, :cap], c2_full[:, :cap]
+        # compact the run ends (c is nondecreasing and run ends are already
+        # in key order, so the sort keeps the prefix order)
+        k2_full, c2_full = sort2(
+            torch.where(real_last, packed,
+                        torch.full_like(packed, KEY_SENTINEL)),
+            torch.where(real_last, c, torch.zeros_like(c)),
+        )
+        key2, c2 = k2_full[:, :cap], c2_full[:, :cap]
     valid2 = key2 != KEY_SENTINEL
     prev = torch.cat([torch.zeros_like(c2[:, :1]), c2[:, :-1]], dim=1)
     # a prefix that is not strictly monotone in f32 may difference below 0
@@ -289,6 +299,8 @@ def deposit_and_merge(
     point_budget: int = 1024,
     uniq_budget: int = 12288,
     wiggle: torch.Tensor | None = None,
+    merge: str = "sorts",
+    lookup: str = "two_stage",
 ) -> dict[str, torch.Tensor]:
     """Transport deposits to the pad plane and merge to unique (pad, tb).
 
@@ -298,6 +310,9 @@ def deposit_and_merge(
     (``Config.device_arrays()["pad_table"]``). ``wiggle`` [E, U] f32 in
     [0, 1): the raw-cloud TB wiggle; with None the wiggled ``tbs`` output is
     left out (the Spyral path ships integer tbs and wiggles on the host).
+    ``merge`` ("sorts" or "fused") and ``lookup`` ("two_stage" or
+    "one_stage") choose the kernels, as the JAX function's ``pallas_sort``
+    (True or "fused") and ``lookup_two_stage`` (True or False) do.
 
     Returns merged entries in per-event windows of U = min(uniq_budget,
     point_budget * 100) rows, flattened (event i owns rows [i*U, (i+1)*U),
@@ -306,6 +321,8 @@ def deposit_and_merge(
     [E]; pool_overflow, uniq_overflow, uniq_max scalars (int32); and tbs
     [E*U] f32 where a wiggle is given. As deposition.py:309-582.
     """
+    if lookup not in LOOKUPS:
+        raise ValueError(f"lookup={lookup!r}: expected one of {LOOKUPS}")
     t_steps, b = electrons.shape
     k_tracks = tracks_per_event
     e = n_events
@@ -384,16 +401,18 @@ def deposit_and_merge(
     ix = torch.where(bad_x, torch.full_like(ix, PAD_TABLE_NX - 1), ix)
     iy = torch.where(bad_y, torch.full_like(iy, PAD_TABLE_NY - 1), iy)
     tbr = (ptbi << rank_bits) | prank
-    packed3 = packed_key_lookup(ix.contiguous(), iy.contiguous(),
-                                tbr.contiguous(), pad_table, rank_bits,
-                                KEY_SENTINEL)
+    lookup_fn = (packed_key_lookup if lookup == "two_stage"
+                 else packed_key_lookup_rows)
+    packed3 = lookup_fn(ix.contiguous(), iy.contiguous(), tbr.contiguous(),
+                        pad_table, rank_bits, KEY_SENTINEL)
     w = pb * MESH_STEPS * MESH_STEPS
     packed = packed3.reshape(e, w)
     qq_in = torch.where(packed3 != KEY_SENTINEL, q_pix,
                         torch.zeros_like(q_pix)).reshape(e, w)
 
     # --- per-event merge to unique (pad, tb) ---------------------------- #
-    key2, sums, valid2, n_uniq = _merge_runs(packed, qq_in, u_cap, rank_bits)
+    key2, sums, valid2, n_uniq = _merge_runs(packed, qq_in, u_cap, rank_bits,
+                                             merge)
     uniq_max = n_uniq.max()
     uniq_overflow = torch.clamp(n_uniq - u_cap, min=0).sum(dtype=i32)
     counts = torch.clamp(n_uniq, max=u_cap)

@@ -2,10 +2,13 @@
 attpc_engine_tpu/detector/simulator.py).
 
 A ``DetectorSimulator`` runs the detector step for a batch of events on one
-device: transport (K1), electron generation, deposition and merge (K2, K3),
-and the Spyral conversion (K3), giving packed int32 rows per batch that the
-host turns into Spyral HDF5 files. ``run_simulation`` streams the batches of
-a kinematics file through it into a writer.
+device: transport (K1), electron generation, deposition and merge (K2 and
+K3 by default; K6 and K5 with ``EngineParams(lookup="one_stage",
+merge="fused")``), and the Spyral conversion (K3), giving packed int32 rows
+per batch that the host turns into Spyral HDF5 files. ``run_simulation``
+streams the batches of a kinematics file through it into a writer. Both
+run on the card unless the caller passes ``device="cpu"``, which runs the
+kernels' plain PyTorch versions.
 
     integrate_tracks (transport.py)       [E*K] tracks, RK4 windows
  -> generate_electrons (deposition.py)    Fano-smeared counts
@@ -15,6 +18,7 @@ a kinematics file through it into a writer.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -23,7 +27,14 @@ import torch
 
 from .. import nuclear_map
 from ..constants import NUM_TB
-from .deposition import deposit_and_merge, fano_noise, generate_electrons
+from ..kernels import require_device
+from .deposition import (
+    LOOKUPS,
+    MERGES,
+    deposit_and_merge,
+    fano_noise,
+    generate_electrons,
+)
 from .parameters import PAD_ID_SENTINEL, PAD_TABLE_NX, PAD_TABLE_NY, Config
 from .response import get_response
 from .sort_cuda import sort_rows
@@ -89,6 +100,14 @@ class EngineParams:
     uniq_budget: unique (pad, tb) slots per event (the merged window).
     out_budget: Spyral rows per event in the shared output pool.
     events_per_batch: events per device step.
+    merge: the per-event merge. "sorts" (default): two row sorts (K3)
+        around a prefix sum, the JAX package's ``pallas_sort=True``.
+        "fused": the whole merge (K5: K3 and the merge-tail kernel), its
+        ``pallas_sort="fused"``; rows wider than 2^18 after padding keep
+        the sorts path, as there.
+    lookup: the pad lookup. "two_stage" (default): K2, the JAX package's
+        ``lookup_two_stage=True``. "one_stage": K6, its
+        ``lookup_two_stage=False``. Both give the same keys.
     """
 
     n_time_steps: int = 10000
@@ -98,6 +117,15 @@ class EngineParams:
     uniq_budget: int = 12288
     out_budget: int = 8192
     events_per_batch: int = 256
+    merge: str = "sorts"
+    lookup: str = "two_stage"
+
+    def __post_init__(self) -> None:
+        for name, allowed in (("merge", MERGES), ("lookup", LOOKUPS)):
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"EngineParams.{name}="
+                                 f"{getattr(self, name)!r}: expected one of "
+                                 f"{allowed}")
 
 
 class DetectorSimulator:
@@ -119,11 +147,11 @@ class DetectorSimulator:
         mass_numbers: np.ndarray,
         indices: list[int] | None = None,
         engine: EngineParams | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ):
+        self.device = require_device(device)
         self.config = config
         self.engine = engine or EngineParams()
-        self.device = torch.device(device)
         if indices is None:
             indices = list(range(2, len(proton_numbers), 2))
             indices.append(len(proton_numbers) - 1)
@@ -264,6 +292,8 @@ class DetectorSimulator:
             tracks_per_event=k,
             point_budget=point_budget,
             uniq_budget=uniq_budget,
+            merge=eng.merge,
+            lookup=eng.lookup,
         )
         return cloud, steps_alive
 
@@ -515,13 +545,14 @@ def run_simulation(
     seed: int | None = None,
     start_event: int = 0,
     stop_event: int | None = None,
-    device: torch.device | str | None = None,
+    device: torch.device | str = "cuda",
 ) -> dict:
     """Run the detector simulation over a kinematics file into ``writer``.
 
     Batches of ``engine.events_per_batch`` events are read with
-    ``KinematicsReader`` and simulated on ``device`` (default: the current
-    CUDA device where there is one, else the CPU). A batch that overflows a
+    ``KinematicsReader`` and simulated on ``device``: the card by default,
+    the plain PyTorch versions with ``device="cpu"``; a CUDA device where
+    torch finds none raises before any work. A batch that overflows a
     budget is run again with every overflowing budget doubled, at most 8
     times (simulator.py:1148-1189); the draws depend only on the event ids,
     so the retry reproduces the same physics. ``start_event`` and
@@ -529,19 +560,21 @@ def run_simulation(
     seed at ``start_event`` reproduces the events it would have produced.
 
     The writer takes packed rows (``write_packed``, SpyralWriterProc) or
-    assembled rows (``write_spyral_pool``, SpyralWriter).
+    assembled rows (``write_spyral_pool``, SpyralWriter); it is closed on
+    return or on error.
 
     Returns {"events": n, "rows": rows written, "budgets": the final
     budgets}.
     """
     from ..io.kinematics_file import KinematicsReader
 
-    engine = engine or EngineParams()
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    reader = KinematicsReader(input_path)
-    stats = {"events": 0, "rows": 0}
-    try:
+    with contextlib.ExitStack() as stack:
+        stack.callback(writer.close)
+        device = require_device(device)
+        engine = engine or EngineParams()
+        reader = KinematicsReader(input_path)
+        stack.callback(reader.close)
+        stats = {"events": 0, "rows": 0}
         sim = DetectorSimulator(config, reader.proton_numbers,
                                 reader.mass_numbers, indices=indices,
                                 engine=engine, device=device)
@@ -588,7 +621,4 @@ def run_simulation(
             stats["events"] += n
             stats["rows"] += total
         stats["budgets"] = budgets
-    finally:
-        writer.close()
-        reader.close()
     return stats

@@ -13,7 +13,8 @@ and all others run in shared memory; see the source.
 
 ``sort_rows`` takes ``torch.sort`` (the plain version) for CPU tensors and
 launches the kernel for CUDA tensors, raising where the kernel cannot take
-them. ``launches`` counts kernel launches.
+them. ``launches`` counts kernel launches. ``pack64`` and ``unpack64`` make
+and split the merge sorts' int64 (key, charge) elements.
 """
 
 from __future__ import annotations
@@ -22,12 +23,36 @@ import torch
 
 from .. import kernels
 
-__all__ = ["sort_rows", "sort_rows_plain", "sort_rows_cuda", "launches"]
+__all__ = [
+    "sort_rows",
+    "sort_rows_plain",
+    "sort_rows_cuda",
+    "pack64",
+    "unpack64",
+    "launches",
+]
 
 TILE = 16384  # elements one block sorts in shared memory (csrc kTile)
 MAX_ROWS = 65535  # gridDim.y
 
 launches = 0
+
+_MASK32 = 0xFFFFFFFF
+
+
+def pack64(key: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """Nonnegative int32 key in the high word, the f32 value's bits in the
+    low word (deposition.py:241-249): for nonnegative values int64 order is
+    (key, value) order."""
+    return (key.to(torch.int64) << 32) | (
+        val.contiguous().view(torch.int32).to(torch.int64) & _MASK32
+    )
+
+
+def unpack64(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(int32 key, f32 value) of ``pack64`` elements."""
+    lo = ((g & _MASK32) ^ 0x80000000) - 0x80000000  # signed low word
+    return (g >> 32).to(torch.int32), lo.to(torch.int32).view(torch.float32)
 
 
 def sort_rows_plain(x: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 The sources under ``csrc/`` are compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, loaded with
+(``sm_90a``), one nvcc process per source, all started together, and
+linked into one shared library with a plain C interface, loaded with
 ctypes: pointers and the stream go in as ``c_void_p``, and every entry
 point returns the ``cudaError_t`` of its launches, which ``check`` turns
 into an exception. The library is built into the git-ignored ``build/``
@@ -10,8 +11,9 @@ built when a module is imported.
 
 The flags leave out ``--use_fast_math`` (IEEE ``logf``, ``sqrtf`` and
 division) and add ``-fmad=false``: the transport kernel must round like its
-plain PyTorch version, whose multiplies and adds are separate kernels. The
-other two kernels do integer work only, so the flag does not touch them.
+plain PyTorch version, whose multiplies and adds are separate kernels, and
+the merge tail adds only, in the order of its plain version. The other
+kernels do integer work only, so the flag does not touch them.
 """
 
 from __future__ import annotations
@@ -28,13 +30,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("transport.cu", "deposit.cu", "sort_rows.cu")
+SOURCES = ("transport.cu", "deposit.cu", "sort_rows.cu", "merge_fused.cu")
 LIBRARY = "libattpc_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
+BUILD_TIMEOUT_S = 900
 
 _state: dict = {"lib": None, "path": None, "build_seconds": None}
 
@@ -54,27 +57,41 @@ def nvcc() -> str:
     return found
 
 
+def _run(cmds: list[list[str]]) -> None:
+    """Run the commands in parallel; raise with the output of the first
+    that fails. Every process is waited for."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    failed = []
+    try:
+        for cmd, proc in zip(cmds, procs):
+            out, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+
+
 def build() -> Path:
     """Compile every source into ``build/libattpc_kernels.so`` and return its
-    path. Raises with nvcc's output if the build fails."""
+    path: one nvcc per source, in parallel, then one link. Raises with
+    nvcc's output if the build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out = BUILD_DIR / LIBRARY
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        if res.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                f"{res.stdout}\n{res.stderr}"
-            )
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [str(Path(tmp) / f"{Path(s).stem}.o") for s in SOURCES]
+        _run([[nvcc(), *NVCC_FLAGS, "-c", str(CSRC / s), "-o", o]
+              for s, o in zip(SOURCES, objs)])
+        lib = str(Path(tmp) / LIBRARY)
+        _run([[nvcc(), *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        os.replace(lib, out)
     _state["build_seconds"] = time.perf_counter() - t0
     _state["path"] = out
     return out
@@ -92,9 +109,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         [vp] * 7 + [i32, i32] + [vp] * 3 + [i32, i32] + [f32] * 15 + [vp]
     )
     lib.attpc_packed_key_lookup.argtypes = [vp] * 5 + [i64, i32, i32, vp]
+    lib.attpc_packed_key_lookup_rows.argtypes = (
+        [vp] * 5 + [i64, i32, i32, vp])
+    lib.attpc_pad_lookup.argtypes = [vp] * 4 + [i64, vp]
     lib.attpc_sort_rows_i64.argtypes = [vp, vp, vp, i32, i64, i64, vp]
+    lib.attpc_merge_tail.argtypes = [vp] * 4 + [i32, i64, i32, i32, vp]
     for fn in (lib.attpc_rk4_window, lib.attpc_packed_key_lookup,
-               lib.attpc_sort_rows_i64):
+               lib.attpc_packed_key_lookup_rows, lib.attpc_pad_lookup,
+               lib.attpc_sort_rows_i64, lib.attpc_merge_tail):
         fn.restype = ctypes.c_int
     lib.attpc_error_string.argtypes = [i32]
     lib.attpc_error_string.restype = ctypes.c_char_p
@@ -137,3 +159,14 @@ def require(t: torch.Tensor, name: str, dtype: torch.dtype,
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {shape}, got {tuple(t.shape)}")
+
+
+def require_device(device: torch.device | str) -> torch.device:
+    """``device`` as a torch.device; raises if it is a CUDA device and
+    torch finds none. Nothing falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r}: torch finds no CUDA device; pass "
+            "device='cpu' to run the plain PyTorch versions on the CPU")
+    return dev

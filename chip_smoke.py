@@ -7,28 +7,44 @@ Run from the repository root on a machine with a CUDA card and nvcc:
 Phases (each raises on failure, and nothing is caught):
 
 1. The card's name and power limit (nvidia-smi); a CUDA device is required.
-2. Build the three CUDA kernels from ``attpc_engine_tpu_torch/csrc`` with
-   nvcc for sm_90a into the git-ignored build directory.
+2. Build the CUDA kernels from ``attpc_engine_tpu_torch/csrc`` with nvcc
+   for sm_90a (one nvcc per source, in parallel) into the git-ignored build
+   directory.
 3. Each kernel against its plain PyTorch version on the card, at the shapes
    of the flagship batch (384 events): K1 transport (768 tracks, one
    500-step window; alive flags exact, positions within 1e-6 m, |dKE|
    within 1e-4 MeV), K2 pad lookup (393,216 points; bit-exact), K3 row
-   sort ([384, 102400] and [384, 12288] int64; bit-exact). Times by CUDA
-   events.
+   sort ([384, 102400] and [384, 12288] int64; bit-exact), K6 one-stage
+   lookup (393,216 points; bit-exact against its plain version and K2), K7
+   pad ids (393,216 points; bit-exact), K5 fused merge ([384, 102400], cap
+   12,288; key2 and n_uniq exact, c2 bit-exact) on the flagship's own merge
+   keys (rank_bits 1, taken from a fused batch) and on synthetic keys
+   (rank_bits 2). Times by CUDA events, beside each kernel's bound (bytes
+   over 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger)
+   and, where one PyTorch call computes the same function, that call's
+   time.
 4. The main path: the flagship configuration (12C(d,p) at 120 MeV through
    D2 at 300 Torr, the default AT-TPC detector) at the default engine
    parameters with 384 events per batch, four batches of the committed
    kinematics (``attpc_engine_tpu_torch/data/smoke_kinematics.npz``)
    through ``DetectorSimulator.simulate_batch`` and the host Spyral
    assembly. h5py is not required on the card, so the HDF5 writers are not
-   driven here. Every kernel must have been launched by this phase; the
+   driven here. K1, K2 and K3 must have been launched by this phase; the
    rows must be well formed; eight events run on the card must agree with
    the same eight run on the CPU through the plain versions.
+4b. The fused configuration, ``EngineParams(merge="fused",
+   lookup="one_stage")``, over the same four batches at full width: K1, K3,
+   K5 and K6 must have been launched and K2 not; its first batch's merged
+   cloud must equal the default configuration's in every integer, with
+   charges within rtol 1e-5 and a one-electron floor.
+4c. The pad-id entry point ``deposit_cuda.pad_lookup`` at 393,216 points:
+   K7 must have been launched.
 5. One JSON line of kernel results, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
-Exits non-zero, with no result line, where there is no CUDA device or no
-repository beside the script.
+Launch counts are set to 0 just before each of 4, 4b and 4c and read just
+after it. Exits non-zero, with no result line, where there is no CUDA
+device or no repository beside the script.
 """
 
 import json
@@ -43,6 +59,38 @@ import torch
 REPO = Path(__file__).resolve().parent
 BATCH = 384
 SEED = 1
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
+F32_FLOPS = 67e12  # f32 outside the tensor cores, the same source
+# f32 operations of one RK4 step of one live track in csrc/transport.cu,
+# counting each logf, sqrtf and division as one: four right-hand sides of
+# ~48 and ~78 for the stage inputs, the update, the kinetic energy and the
+# stop tests
+K1_FLOPS_PER_STEP = 270
+
+# name: (wrapper module, launch counter, source, TPU kernel, path)
+KERNELS = {
+    "transport": ("transport_cuda", "launches",
+                  "attpc_engine_tpu_torch/csrc/transport.cu",
+                  "attpc_engine_tpu/detector/transport_pallas.py:45",
+                  "default"),
+    "deposit": ("deposit_cuda", "launches",
+                "attpc_engine_tpu_torch/csrc/deposit.cu",
+                "attpc_engine_tpu/detector/deposit_pallas.py:210", "default"),
+    "sort_rows": ("sort_cuda", "launches",
+                  "attpc_engine_tpu_torch/csrc/sort_rows.cu",
+                  "attpc_engine_tpu/detector/sort_pallas.py:366", "default"),
+    "merge_fused": ("merge_cuda", "launches",
+                    "attpc_engine_tpu_torch/csrc/merge_fused.cu",
+                    "attpc_engine_tpu/detector/sort_pallas.py:279", "fused"),
+    "packed_key_lookup_rows": (
+        "deposit_cuda", "launches_rows",
+        "attpc_engine_tpu_torch/csrc/deposit.cu",
+        "attpc_engine_tpu/detector/deposit_pallas.py:124", "fused"),
+    "pad_lookup": ("deposit_cuda", "launches_pad_lookup",
+                   "attpc_engine_tpu_torch/csrc/deposit.cu",
+                   "attpc_engine_tpu/detector/deposit_pallas.py:111",
+                   "pad_lookup"),
+}
 
 
 def card_line() -> str:
@@ -67,7 +115,35 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def flagship_simulator(device):
+def bound(n_bytes: float, f32_ops: float = 0.0) -> dict:
+    """The least time the card could take: the bytes the function must
+    move over the memory rate, or its f32 operations over the f32 rate,
+    whichever is larger. Integer compares, gathers and index arithmetic
+    have no rate in the card's table and are not counted."""
+    t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * f32_ops / F32_FLOPS
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def _wrapper(name: str):
+    import importlib
+
+    return importlib.import_module(
+        f"attpc_engine_tpu_torch.detector.{KERNELS[name][0]}")
+
+
+def reset_counts() -> None:
+    for name, (_, counter, *_rest) in KERNELS.items():
+        setattr(_wrapper(name), counter, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(_wrapper(name), counter)
+            for name, (_, counter, *_rest) in KERNELS.items()}
+
+
+def flagship_simulator(device, **engine):
     from attpc_engine_tpu_torch import nuclear_map
     from attpc_engine_tpu_torch.detector import (
         Config,
@@ -93,7 +169,8 @@ def flagship_simulator(device):
                    / "smoke_kinematics.npz")
     sim = DetectorSimulator(config, data["proton_numbers"],
                             data["mass_numbers"],
-                            engine=EngineParams(events_per_batch=BATCH),
+                            engine=EngineParams(events_per_batch=BATCH,
+                                                **engine),
                             device=device)
     return sim, data["vertices"], data["momenta"]
 
@@ -141,16 +218,24 @@ def check_transport(sim, vertices, momenta, card: str) -> dict:
         raise AssertionError(f"K1: |dpos| {dpos} m, |ddke| {ddke} MeV")
     ms = cuda_ms(lambda: run(transport_cuda.rk4_window_cuda), 10)
     plain_ms = cuda_ms(lambda: run(T.rk4_window_plain), 1)
+    # outputs [T, B] positions, |dKE| and flags, the carried state read and
+    # written, the per-track constants and the dE/dx table read
+    n_bytes = (steps * b * (12 + 4 + 1) + 2 * b * (12 + 12 + 1)
+               + b * (4 + 4 + 4) + sim.species.dedx.numel() * 4)
+    live_steps = int(live.sum())
+    bnd = bound(n_bytes, K1_FLOPS_PER_STEP * live_steps)
     print(f"K1 transport: B={b} T={steps}: alive exact, max |dpos| {dpos:.3g} m,"
-          f" max |ddke| {ddke:.3g} MeV; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms"
-          f" [{card}]")
-    return {"max_abs_err": dpos, "ms": ms, "plain_ms": plain_ms}
+          f" max |ddke| {ddke:.3g} MeV; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms,"
+          f" bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; "
+          f"{live_steps} live track-steps) [{card}]")
+    return {"max_abs_err": dpos, "ms": ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": None}
 
 
-def check_deposit(sim, card: str) -> dict:
-    """K2 against packed_key_lookup_plain at P = 384 * 1024 points."""
-    from attpc_engine_tpu_torch.detector import deposit_cuda
-
+def lookup_inputs(sim):
+    """Random mesh cells at P = 384 * 1024 points, 10 % of each axis
+    aliased onto the table's sentinel padding as deposit_and_merge does, and
+    some beyond the table (clipped)."""
     p = BATCH * sim.engine.point_budget
     g = torch.Generator(device="cuda").manual_seed(SEED)
     ix = torch.randint(-3, 563, (p, 10), generator=g, device="cuda",
@@ -161,6 +246,21 @@ def check_deposit(sim, card: str) -> dict:
     iy[torch.rand((p, 10), generator=g, device="cuda") < 0.1] = 639
     tbr = torch.randint(0, 512 << 1, (p,), generator=g, device="cuda",
                         dtype=torch.int32)
+    return ix, iy, tbr
+
+
+def lookup_bytes(p: int, with_tbr: bool) -> int:
+    """ix and iy read, tbr read, the int32 table read, the [P, 10, 10]
+    int32 output written."""
+    return p * 10 * 4 * 2 + (p * 4 if with_tbr else 0) + 560 * 640 * 4 + (
+        p * 100 * 4)
+
+
+def check_deposit(sim, inputs, card: str) -> dict:
+    """K2 against packed_key_lookup_plain at P = 384 * 1024 points."""
+    from attpc_engine_tpu_torch.detector import deposit_cuda
+
+    ix, iy, tbr = inputs
     args = (ix, iy, tbr, sim.pad_table, 1, 2**31 - 1)
     got = deposit_cuda.packed_key_lookup_cuda(*args)
     ref = deposit_cuda.packed_key_lookup_plain(*args)
@@ -169,13 +269,67 @@ def check_deposit(sim, card: str) -> dict:
         raise AssertionError(f"K2: {n_bad} of {ref.numel()} keys differ")
     ms = cuda_ms(lambda: deposit_cuda.packed_key_lookup_cuda(*args), 20)
     plain_ms = cuda_ms(lambda: deposit_cuda.packed_key_lookup_plain(*args), 5)
-    print(f"K2 pad lookup: P={p} ({ref.numel()} keys): bit-exact; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms [{card}]")
-    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms}
+    bnd = bound(lookup_bytes(ix.shape[0], True))
+    print(f"K2 pad lookup: P={ix.shape[0]} ({ref.numel()} keys): bit-exact; "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms [{card}]")
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": None}
+
+
+def check_rows_lookup(sim, inputs, card: str) -> dict:
+    """K6 against its plain version and against K2, same inputs."""
+    from attpc_engine_tpu_torch.detector import deposit_cuda
+
+    ix, iy, tbr = inputs
+    args = (ix, iy, tbr, sim.pad_table, 1, 2**31 - 1)
+    got = deposit_cuda.packed_key_lookup_rows_cuda(*args)
+    ref = deposit_cuda.packed_key_lookup_plain(*args)
+    n_bad = int((got != ref).sum())
+    n_bad_k2 = int((got != deposit_cuda.packed_key_lookup_cuda(*args)).sum())
+    if n_bad or n_bad_k2:
+        raise AssertionError(f"K6: {n_bad} keys differ from the plain "
+                             f"version, {n_bad_k2} from K2")
+    ms = cuda_ms(lambda: deposit_cuda.packed_key_lookup_rows_cuda(*args), 20)
+    k2_ms = cuda_ms(lambda: deposit_cuda.packed_key_lookup_cuda(*args), 20)
+    plain_ms = cuda_ms(lambda: deposit_cuda.packed_key_lookup_plain(*args), 5)
+    bnd = bound(lookup_bytes(ix.shape[0], True))
+    print(f"K6 one-stage lookup: P={ix.shape[0]}: bit-exact against the plain "
+          f"version and K2; kernel {ms:.3f} ms (K2 in the same run "
+          f"{k2_ms:.3f} ms), plain {plain_ms:.3f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms [{card}]")
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": None, "k2_ms_same_run": k2_ms}
+
+
+def check_pad_lookup(sim, inputs, card: str) -> dict:
+    """K7 against its plain version; the library call is the one indexing
+    gather of the plain version on indices already clipped and widened."""
+    from attpc_engine_tpu_torch.detector import deposit_cuda
+
+    ix, iy, _ = inputs
+    table = sim.pad_table
+    got = deposit_cuda.pad_lookup_cuda(ix, iy, table)
+    ref = deposit_cuda.pad_lookup_plain(ix, iy, table)
+    n_bad = int((got != ref).sum())
+    if n_bad:
+        raise AssertionError(f"K7: {n_bad} of {ref.numel()} pad ids differ")
+    ms = cuda_ms(lambda: deposit_cuda.pad_lookup_cuda(ix, iy, table), 20)
+    plain_ms = cuda_ms(lambda: deposit_cuda.pad_lookup_plain(ix, iy, table), 5)
+    ixc = ix.clamp(0, 559).long()[:, :, None]
+    iyc = iy.clamp(0, 639).long()[:, None, :]
+    library_ms = cuda_ms(lambda: table[ixc, iyc], 20)
+    bnd = bound(lookup_bytes(ix.shape[0], False))
+    print(f"K7 pad ids: P={ix.shape[0]}: bit-exact; kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, library (one indexing gather) "
+          f"{library_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms [{card}]")
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": library_ms}
 
 
 def check_sort(width: int, convert: bool, card: str) -> dict:
-    """K3 against torch.sort on rows like the merge's or the convert's."""
+    """K3 against torch.sort on rows like the merge's or the convert's;
+    torch.sort is also the library call."""
     from attpc_engine_tpu_torch.detector import sort_cuda
 
     g = torch.Generator(device="cuda").manual_seed(SEED + width)
@@ -192,7 +346,7 @@ def check_sort(width: int, convert: bool, card: str) -> dict:
         key = torch.where(dead, 2**31 - 1, key)
         q = torch.rand(shape, generator=g, device="cuda") * 100
         q = torch.where(dead, 0.0, q)
-        x = (key << 32) | (q.view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
+        x = sort_cuda.pack64(key, q)
     got = sort_cuda.sort_rows_cuda(x)
     ref = sort_cuda.sort_rows_plain(x)
     n_bad = int((got != ref).sum())
@@ -200,9 +354,87 @@ def check_sort(width: int, convert: bool, card: str) -> dict:
         raise AssertionError(f"K3 at {shape}: {n_bad} elements differ")
     ms = cuda_ms(lambda: sort_cuda.sort_rows_cuda(x), 10)
     plain_ms = cuda_ms(lambda: sort_cuda.sort_rows_plain(x), 10)
+    bnd = bound(2 * x.numel() * 8)
     print(f"K3 row sort {list(shape)}: bit-exact; kernel {ms:.3f} ms, "
-          f"plain (torch.sort) {plain_ms:.3f} ms [{card}]")
-    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms}
+          f"plain (torch.sort, the library call) {plain_ms:.3f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms [{card}]")
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": plain_ms}
+
+
+def flagship_merge_inputs(sim_fused, vertices, momenta):
+    """The (packed, qv, cap, rank_bits) that the first fused batch hands K5:
+    the flagship's own merge keys."""
+    from attpc_engine_tpu_torch.detector import deposition
+
+    seen = {}
+    real = deposition.merge_runs_fused
+
+    def spy(packed, qv, cap, rank_bits):
+        seen["args"] = (packed.clone(), qv.clone(), cap, rank_bits)
+        return real(packed, qv, cap, rank_bits)
+
+    deposition.merge_runs_fused = spy
+    try:
+        sim_fused.simulate_batch(vertices[:BATCH], momenta[:BATCH], seed=SEED,
+                                 assemble=False)
+    finally:
+        deposition.merge_runs_fused = real
+    return seen["args"]
+
+
+def synthetic_merge_inputs(width: int, cap: int, rank_bits: int):
+    """Keys with runs of every length, four deposition ranks, 30 % dead
+    lanes, charges like the flagship's pixels."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + rank_bits)
+    shape = (BATCH, width)
+    space = torch.randint(0, 2 * cap, shape, generator=g, device="cuda",
+                          dtype=torch.int32)
+    rank = torch.randint(0, 1 << rank_bits, shape, generator=g,
+                         device="cuda", dtype=torch.int32)
+    packed = (space << rank_bits) | rank
+    qv = torch.rand(shape, generator=g, device="cuda") * 300
+    dead = torch.rand(shape, generator=g, device="cuda") < 0.3
+    packed = torch.where(dead, 2**31 - 1, packed)
+    qv = torch.where(dead, 0.0, qv)
+    return packed, qv, cap, rank_bits
+
+
+def check_merge_fused(args, label: str, card: str) -> dict:
+    """K5 (K3 then the tail kernel) against its plain version (torch.sort
+    then the plain tail): key2 and n_uniq exact, c2 bit-exact."""
+    from attpc_engine_tpu_torch.detector import merge_cuda, sort_cuda
+
+    packed, qv, cap, rank_bits = args
+    got = merge_cuda.merge_runs_fused_cuda(*args)
+    ref = merge_cuda.merge_runs_fused_plain(*args)
+    bad = [int((a.view(torch.int32) != b.view(torch.int32)).sum())
+           for a, b in zip(got, ref)]
+    if any(bad):
+        raise AssertionError(f"K5 {label}: key2, c2, n_uniq differ in "
+                             f"{bad} places")
+    if int(ref[2].max()) <= 0:
+        raise AssertionError(f"K5 {label}: no runs at all")
+    ms = cuda_ms(lambda: merge_cuda.merge_runs_fused_cuda(*args), 10)
+    plain_ms = cuda_ms(lambda: merge_cuda.merge_runs_fused_plain(*args), 3)
+    rows = sort_cuda.sort_rows_cuda(sort_cuda.pack64(packed, qv))
+    tail_ms = cuda_ms(lambda: merge_cuda.merge_tail_cuda(rows, cap,
+                                                         rank_bits), 10)
+    e, w = packed.shape
+    n_seg = -(-w // 128)
+    # packed and qv read, key2, c2 and n_uniq written; the prefix's f32
+    # additions: 7 lane steps and the segment offset per lane, a
+    # Hillis-Steele step per segment and distance
+    n_bytes = e * w * 8 + e * cap * 8 + e * 4
+    f32_ops = e * (w * 8 + n_seg * max(1, (n_seg - 1).bit_length()))
+    bnd = bound(n_bytes, f32_ops)
+    print(f"K5 fused merge {label} [{e}, {w}] cap {cap} rank_bits "
+          f"{rank_bits}: key2 and n_uniq exact, c2 bit-exact (n_uniq "
+          f"{int(ref[2].min())}-{int(ref[2].max())}); kernel {ms:.3f} ms "
+          f"(of which the tail {tail_ms:.3f} ms), plain {plain_ms:.3f} ms, "
+          f"bound {bnd['bound_ms']:.4f} ms [{card}]")
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": None, "tail_ms": tail_ms}
 
 
 def check_rows(sim, out, n_events: int) -> int:
@@ -226,21 +458,21 @@ def check_rows(sim, out, n_events: int) -> int:
     return total
 
 
-def main_path(sim, vertices, momenta, card: str) -> dict:
-    """Four batches through simulate_batch + host assembly; the device step
-    of batches 2-4 is timed (dispatch until the metadata reached the
-    host)."""
-    from attpc_engine_tpu_torch.detector import (
-        deposit_cuda,
-        sort_cuda,
-        transport_cuda,
-    )
+CLOUD_INTEGERS = ("pads", "tbs_i", "labels", "events", "cloud_valid",
+                  "counts", "n_points", "uniq_overflow", "pool_overflow",
+                  "uniq_max")
+
+
+def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
+              card: str) -> dict:
+    """Four batches through simulate_batch + host assembly, launch counts
+    set to 0 just before and read just after; the device step of batches
+    2-4 is timed (dispatch until the metadata reached the host). Returns the
+    counts, the timing and the first batch's merged cloud."""
     from attpc_engine_tpu_torch.detector.simulator import overflow_kinds
 
-    wrappers = (transport_cuda, deposit_cuda, sort_cuda)
-    for w in wrappers:
-        w.launches = 0
-    step_s, asm_s, rows = [], [], 0
+    step_s, asm_s, rows, first = [], [], 0, None
+    reset_counts()
     for start in range(0, len(vertices), BATCH):
         v, m = vertices[start:start + BATCH], momenta[start:start + BATCH]
         torch.cuda.synchronize()
@@ -251,7 +483,8 @@ def main_path(sim, vertices, momenta, card: str) -> dict:
         t1 = time.perf_counter()
         kinds = overflow_kinds(meta)
         if kinds:
-            raise AssertionError(f"overflow at default budgets: {kinds}")
+            raise AssertionError(f"{label}: overflow at default budgets: "
+                                 f"{kinds}")
         counts = meta[:len(v)]
         total = check_rows(sim, out, len(v))
         spyral, labels = sim.assemble_spyral_ordered(
@@ -260,22 +493,62 @@ def main_path(sim, vertices, momenta, card: str) -> dict:
         t2 = time.perf_counter()
         if spyral.shape != (total, 8) or not np.isfinite(spyral).all():
             raise AssertionError("malformed Spyral rows")
+        if first is None:
+            first = {k: out[k] for k in CLOUD_INTEGERS + ("charges",)}
         step_s.append(t1 - t0)
         asm_s.append(t2 - t1)
         rows += total
-    launches = {w.__name__.rsplit(".", 1)[1]: w.launches for w in wrappers}
-    if min(launches.values()) == 0:
-        raise AssertionError(f"a kernel of the path never launched: {launches}")
+    launches = read_counts()
+    missing = [k for k in must_launch if launches[k] == 0]
+    extra = [k for k in must_not if launches[k] != 0]
+    if missing or extra:
+        raise AssertionError(f"{label}: kernels of the path never launched "
+                             f"{missing}, kernels off the path launched "
+                             f"{extra}: {launches}")
     timed = step_s[1:]  # the first batch is warm-up
     ms = 1e3 * float(np.mean(timed))
-    print(f"main path: {len(step_s)} batches of {BATCH} events, {rows} rows; "
-          f"device step {[round(1e3 * s, 3) for s in step_s]} ms "
+    print(f"{label} path: {len(step_s)} batches of {BATCH} events, {rows} rows;"
+          f" device step {[round(1e3 * s, 3) for s in step_s]} ms "
           f"(first excluded: mean {ms:.3f} ms/batch, "
           f"{BATCH / np.mean(timed):.1f} events/s); host assembly "
           f"{1e3 * float(np.mean(asm_s[1:])):.3f} ms/batch; launches {launches}"
           f" [{card}]")
     return {"launches": launches, "ms_per_batch": ms,
-            "events_per_s": BATCH / float(np.mean(timed))}
+            "events_per_s": BATCH / float(np.mean(timed)), "first": first}
+
+
+def compare_clouds(default: dict, fused: dict, gain: float) -> None:
+    """The fused configuration's first batch against the default one's:
+    every integer exact, charges within rtol 1e-5 with a one-electron floor
+    (tests/test_sort_pallas.py:221-230)."""
+    for k in CLOUD_INTEGERS:
+        if not torch.equal(default[k], fused[k]):
+            raise AssertionError(f"fused vs default: {k} differs")
+    qd, qf = default["charges"] / gain, fused["charges"] / gain
+    excess = float(((qf - qd).abs() - (1.0 + 1e-5 * qd.abs())).max())
+    same = float((default["charges"] == fused["charges"]).float().mean())
+    print(f"fused vs default, first batch: integers exact; charges within "
+          f"rtol 1e-5 + 1 electron (max excess {excess:.3g} electrons; "
+          f"{100 * same:.2f} % of rows bit-identical)")
+    if excess > 0:
+        raise AssertionError("fused vs default: charges out of bound")
+
+
+def pad_lookup_path(inputs, table, card: str) -> dict:
+    """The pad-id entry point as a user calls it, counts set to 0 just
+    before and read just after."""
+    from attpc_engine_tpu_torch.detector import deposit_cuda
+
+    ix, iy, _ = inputs
+    reset_counts()
+    pads = deposit_cuda.pad_lookup(ix, iy, table)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    if launches["pad_lookup"] == 0 or pads.shape != (ix.shape[0], 10, 10):
+        raise AssertionError(f"pad_lookup entry point: {launches}")
+    print(f"pad_lookup entry point: {tuple(pads.shape)} pad ids; launches "
+          f"{launches} [{card}]")
+    return {"launches": launches}
 
 
 def check_against_cpu(sim_gpu, vertices, momenta, n: int = 8) -> None:
@@ -318,39 +591,65 @@ def main() -> int:
     print(f"kernels built in {kernels.build_seconds():.1f} s")
 
     sim, vertices, momenta = flagship_simulator("cuda")
+    fused_cfg = dict(merge="fused", lookup="one_stage")
+    sim_fused, _, _ = flagship_simulator("cuda", **fused_cfg)
+    inputs = lookup_inputs(sim)
+    w, cap = sim.engine.point_budget * 100, sim.engine.uniq_budget
     res = {
         "transport": check_transport(sim, vertices[:BATCH], momenta[:BATCH],
                                      card),
-        "deposit": check_deposit(sim, card),
-        "sort_rows": check_sort(sim.engine.point_budget * 100, False, card),
+        "deposit": check_deposit(sim, inputs, card),
+        "sort_rows": check_sort(w, False, card),
+        "packed_key_lookup_rows": check_rows_lookup(sim, inputs, card),
+        "pad_lookup": check_pad_lookup(sim, inputs, card),
+        "merge_fused": check_merge_fused(
+            flagship_merge_inputs(sim_fused, vertices, momenta),
+            "flagship keys", card),
     }
-    convert = check_sort(sim.engine.uniq_budget, True, card)
-    path = main_path(sim, vertices, momenta, card)
+    convert = check_sort(cap, True, card)
+    synthetic = check_merge_fused(synthetic_merge_inputs(w, cap, 2),
+                                  "synthetic keys", card)
+
+    paths = {
+        "default": main_path(sim, vertices, momenta, "default",
+                             ("transport", "deposit", "sort_rows"),
+                             ("merge_fused", "packed_key_lookup_rows",
+                              "pad_lookup"), card),
+        "fused": main_path(sim_fused, vertices, momenta, "fused",
+                           ("transport", "sort_rows", "merge_fused",
+                            "packed_key_lookup_rows"),
+                           ("deposit", "pad_lookup"), card),
+        "pad_lookup": pad_lookup_path(inputs, sim.pad_table, card),
+    }
+    compare_clouds(paths["default"]["first"], paths["fused"]["first"],
+                   float(sim.config.det_params.mpgd_gain))
     check_against_cpu(sim, vertices, momenta)
 
-    sources = {
-        "transport": ("attpc_engine_tpu_torch/csrc/transport.cu",
-                      "attpc_engine_tpu/detector/transport_pallas.py:45",
-                      "transport_cuda"),
-        "deposit": ("attpc_engine_tpu_torch/csrc/deposit.cu",
-                    "attpc_engine_tpu/detector/deposit_pallas.py:210",
-                    "deposit_cuda"),
-        "sort_rows": ("attpc_engine_tpu_torch/csrc/sort_rows.cu",
-                      "attpc_engine_tpu/detector/sort_pallas.py:366",
-                      "sort_cuda"),
-    }
     rows = []
-    for name, (src, replaces, wrapper) in sources.items():
+    for name, (_, _, src, replaces, path) in KERNELS.items():
         row = {"name": name, "route": "cuda", "source": src,
-               "replaces": replaces, "launches": path["launches"][wrapper],
+               "replaces": replaces, "path": path,
+               "launches": paths[path]["launches"][name],
+               "launches_by_path": {p: paths[p]["launches"][name]
+                                    for p in paths},
                **res[name]}
         if name == "sort_rows":
-            row["convert_ms"] = convert["ms"]
-            row["convert_plain_ms"] = convert["plain_ms"]
+            row.update(convert_ms=convert["ms"],
+                       convert_plain_ms=convert["plain_ms"],
+                       convert_bound_ms=convert["bound_ms"],
+                       convert_library_ms=convert["library_ms"])
+        if name == "merge_fused":
+            row.update(synthetic_ms=synthetic["ms"],
+                       synthetic_plain_ms=synthetic["plain_ms"],
+                       synthetic_tail_ms=synthetic["tail_ms"])
         rows.append(row)
-    print(json.dumps({"kernels": rows,
-                      "main_path_ms_per_batch": path["ms_per_batch"],
-                      "events_per_s": path["events_per_s"]}))
+    print(json.dumps({
+        "kernels": rows,
+        "main_path_ms_per_batch": paths["default"]["ms_per_batch"],
+        "events_per_s": paths["default"]["events_per_s"],
+        "fused_path_ms_per_batch": paths["fused"]["ms_per_batch"],
+        "fused_events_per_s": paths["fused"]["events_per_s"],
+        "card": card}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,8 +7,9 @@ the JAX package (the card's Python needs neither jax nor h5py for it):
     python -m pytest -q tests/test_torch_cuda.py
 
 Bounds: K1 alive flags exact, positions within 1e-6 m, |dKE| within
-1e-4 MeV (tests/test_transport_pallas.py); K2 and K3 bit-exact. A wrapper
-given a CUDA tensor it cannot take raises: nothing falls back.
+1e-4 MeV (tests/test_transport_pallas.py); K2, K3, K6 and K7 bit-exact; K5
+key2 and n_uniq exact and c2 bit-exact. A wrapper given a CUDA tensor it
+cannot take raises: nothing falls back.
 """
 
 from pathlib import Path
@@ -28,11 +29,11 @@ from attpc_engine_tpu_torch.detector import (
 )
 from attpc_engine_tpu_torch.detector import (
     deposit_cuda,
+    merge_cuda,
     sort_cuda,
     transport_cuda,
 )
 from attpc_engine_tpu_torch.detector import transport as T
-from attpc_engine_tpu_torch.detector.deposition import _pack64
 from attpc_engine_tpu_torch.nuclear import GasTarget
 
 pytestmark = pytest.mark.cuda
@@ -98,7 +99,8 @@ def test_sort_kernel_matches_torch_sort(cuda_device, w):
     hi = rng.integers(0, 7, (4, w)).astype(np.int32) * 1000
     hi[rng.random((4, w)) < 0.3] = SENT
     lo = np.float32(rng.random((4, w)) * 100)
-    x = _pack64(torch.from_numpy(hi), torch.from_numpy(lo)).to(cuda_device)
+    x = sort_cuda.pack64(torch.from_numpy(hi),
+                         torch.from_numpy(lo)).to(cuda_device)
     x[1] = 2**63 - 1  # a row of sentinels
     x[2] = -x[2]  # signed keys
     got = sort_cuda.sort_rows(x)
@@ -132,6 +134,56 @@ def test_deposit_kernel_matches_plain(cuda_device):
                                        sim.pad_table, 1, SENT)
 
 
+def test_rows_and_pad_lookup_kernels_match_plain(cuda_device):
+    """K6 against its plain version and K2; K7 against its plain version,
+    out-of-plane pixels included; P not a multiple of the block."""
+    sim, _, _ = _simulator(cuda_device)
+    rng = np.random.default_rng(2)
+    p = 5003
+    ix = rng.integers(-5, 565, (p, 10)).astype(np.int32)
+    iy = rng.integers(-5, 645, (p, 10)).astype(np.int32)
+    tbr = rng.integers(0, 2048, p).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (ix, iy, tbr)]
+    ref = deposit_cuda.packed_key_lookup_plain(*args, sim.pad_table, 2, SENT)
+    got = deposit_cuda.packed_key_lookup_rows(*args, sim.pad_table, 2, SENT)
+    assert torch.equal(got, ref)
+    assert torch.equal(got, deposit_cuda.packed_key_lookup_cuda(
+        *args, sim.pad_table, 2, SENT))
+    pads = deposit_cuda.pad_lookup(args[0], args[1], sim.pad_table)
+    assert torch.equal(pads, deposit_cuda.pad_lookup_plain(
+        args[0], args[1], sim.pad_table))
+    with pytest.raises(ValueError):
+        deposit_cuda.pad_lookup(args[0][:, :9].contiguous(), args[1],
+                                sim.pad_table)
+
+
+@pytest.mark.parametrize("e,w,cap,rank_bits", [
+    (3, 700, 100, 2), (4, 12800, 4096, 1), (2, 102400, 12288, 1),
+    (2, 2**18, 12288, 2),
+])
+def test_fused_merge_kernel_matches_plain(cuda_device, e, w, cap, rank_bits):
+    """K5 against its plain version: key2 and n_uniq exact, c2 bit-exact;
+    a row of sentinels, widths that are not powers of two, caps that are
+    not multiples of 128 or lie below n_uniq."""
+    rng = np.random.default_rng(w)
+    space = np.sort(rng.integers(0, w // 4, (e, w)), axis=1).astype(np.int32)
+    packed = (space << rank_bits) | rng.integers(
+        0, 1 << rank_bits, (e, w)).astype(np.int32)
+    qv = np.abs(rng.normal(100.0, 30.0, (e, w))).astype(np.float32)
+    dead = rng.random((e, w)) < 0.3
+    packed[dead] = SENT
+    qv[dead] = 0.0
+    packed[1] = SENT
+    qv[1] = 0.0
+    args = (torch.from_numpy(packed).to(cuda_device),
+            torch.from_numpy(qv).to(cuda_device), cap, rank_bits)
+    got = merge_cuda.merge_runs_fused(*args)
+    ref = merge_cuda.merge_runs_fused_plain(*args)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[2], ref[2])
+    assert torch.equal(got[1].view(torch.int32), ref[1].view(torch.int32))
+    assert int(got[2][1]) == 0 and int(got[2][0]) > 0
+
+
 def test_step_on_card_agrees_with_cpu(cuda_device):
     """Eight flagship events through the kernels and through the plain
     versions on the CPU: the devices round logf differently, so per event
@@ -148,3 +200,21 @@ def test_step_on_card_agrees_with_cpu(cuda_device):
     np.testing.assert_allclose(mg[:8], mc[:8], rtol=0.02)
     np.testing.assert_allclose(mg[16:24], mc[16:24], rtol=0.02)
     assert abs(qg - qc) <= 0.01 * qc
+
+
+def test_fused_step_on_card_agrees_with_default(cuda_device):
+    """Eight flagship events on the card in the fused, one-stage
+    configuration against the default one: the merged cloud's integers
+    exact, charges within rtol 1e-5 with a one-electron floor."""
+    outs = []
+    for cfg in ({}, dict(merge="fused", lookup="one_stage")):
+        sim, vert, mom = _simulator(cuda_device, n_time_steps=1000,
+                                    events_per_batch=8, **cfg)
+        outs.append(sim.simulate_batch(vert[:8], mom[:8], seed=1,
+                                       assemble=False))
+    d, f = outs
+    for name in ("pads", "tbs_i", "labels", "cloud_valid", "counts"):
+        assert torch.equal(d[name], f[name]), name
+    gain = float(sim.config.det_params.mpgd_gain)
+    torch.testing.assert_close(f["charges"] / gain, d["charges"] / gain,
+                               rtol=1e-5, atol=1.0)

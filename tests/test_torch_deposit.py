@@ -1,9 +1,10 @@
-"""The port's deposition stage against the JAX package: the pad lookup
-(K2's plain version) against ``packed_key_lookup_2s_pallas`` in interpret
-mode, and ``deposit_and_merge`` against the JAX function fed the same
-electrons and raw-cloud wiggle.
+"""The port's deposition stage against the JAX package: the pad lookups
+(the plain versions of K2, K6 and K7) against ``packed_key_lookup_2s_pallas``,
+``packed_key_lookup_pallas`` and ``pad_lookup_pallas`` in interpret mode,
+and ``deposit_and_merge`` against the JAX function fed the same electrons
+and raw-cloud wiggle.
 
-The lookup must be bit-exact. ``deposit_and_merge``'s integer outputs must
+The lookups must be bit-exact. ``deposit_and_merge``'s integer outputs must
 be bit-exact and its charges within rtol 1e-5 / atol 1e-2
 (tests/test_sort_pallas.py:171-172); the gain is 1 here, so the atol is on
 the scale of the f32 prefix the run sums are differences of.
@@ -17,6 +18,8 @@ import torch
 
 from attpc_engine_tpu.detector.deposit_pallas import (
     packed_key_lookup_2s_pallas,
+    packed_key_lookup_pallas,
+    pad_lookup_pallas,
 )
 from attpc_engine_tpu.detector.deposition import (
     _key_lookup as jax_key_lookup,
@@ -54,6 +57,48 @@ def test_plain_lookup_bit_exact_vs_pallas_2s():
         table, 1, SENT)
     np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
     assert (got.numpy() == SENT).any() and (got.numpy() != SENT).any()
+
+
+def _table(dev):
+    return torch.from_numpy(
+        (dev["plane_hi"] * 128 + dev["plane_lo"]).astype(np.int32))
+
+
+def test_plain_rows_lookup_bit_exact_vs_pallas_and_k2():
+    """K6's plain version against the one-stage Pallas kernel and against
+    K2's plain version, at a P that is not a multiple of the Pallas
+    kernel's 64-point block, with aliased invalid pixels."""
+    dev = jax_config().device_arrays()
+    ix, iy, tbr = _lookup_inputs(300, 1)
+    ref = packed_key_lookup_pallas(
+        jnp.asarray(ix), jnp.asarray(iy), jnp.asarray(tbr), dev["plane_hi"],
+        dev["plane_lo"], rank_bits=1, sentinel=SENT, interpret=True)
+    args = (torch.from_numpy(ix), torch.from_numpy(iy), torch.from_numpy(tbr),
+            _table(dev), 1, SENT)
+    got = deposit_cuda.packed_key_lookup_rows(*args)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    np.testing.assert_array_equal(got.numpy(),
+                                  deposit_cuda.packed_key_lookup(*args).numpy())
+    assert (got.numpy() == SENT).any() and (got.numpy() != SENT).any()
+
+
+def test_plain_pad_lookup_bit_exact_vs_pallas_on_all_pixels():
+    """K7's plain version against pad_lookup_pallas on every pixel,
+    including those clipped onto the table's edges (the setup of
+    tests/test_deposit_pallas.py:36-56 on the detector's own table)."""
+    dev = jax_config().device_arrays()
+    rng = np.random.default_rng(0)
+    p = 300
+    ix = rng.integers(-5, 565, (p, 10)).astype(np.int32)
+    iy = rng.integers(-5, 645, (p, 10)).astype(np.int32)
+    ref = np.asarray(pad_lookup_pallas(ix, iy, dev["plane_hi"],
+                                       dev["plane_lo"], interpret=True))
+    got = deposit_cuda.pad_lookup(torch.from_numpy(ix), torch.from_numpy(iy),
+                                  _table(dev)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    clipped = ((ix < 0) | (ix > 559))[:, :, None] | (
+        (iy < 0) | (iy > 639))[:, None, :]
+    assert clipped.any() and (got < 10240).any() and (got == 10240).any()
 
 
 def test_key_lookup_matches_jax():

@@ -40,7 +40,7 @@ def test_philox_known_answers(ctr, key, expect):
 def test_normal_moments_within_5_sigma():
     n = 100_000
     z = fano_noise(seed=12345, event_start=0, n_events=500, tracks=2,
-                   n_steps=100, chunk_steps=100).double().reshape(-1)
+                   n_steps=100, chunk_steps=100, device="cpu").double().reshape(-1)
     assert z.numel() == n
     assert torch.isfinite(z).all()
     assert abs(float(z.mean())) < 5 / np.sqrt(n)
@@ -49,7 +49,7 @@ def test_normal_moments_within_5_sigma():
 
 def test_draws_independent_of_batch_grid():
     """Events 0-7 in one batch or in batches of 3, 3 and 2 draw the same."""
-    kw = dict(seed=7, tracks=2, n_steps=120, chunk_steps=50)
+    kw = dict(seed=7, tracks=2, n_steps=120, chunk_steps=50, device="cpu")
     one = fano_noise(event_start=0, n_events=8, **kw)
     parts = [fano_noise(event_start=s, n_events=n, **kw)
              for s, n in ((0, 3), (3, 3), (6, 2))]
@@ -58,14 +58,16 @@ def test_draws_independent_of_batch_grid():
 
 def test_draws_independent_of_window_length():
     """A longer window only appends steps: the first chunks are equal."""
-    kw = dict(seed=7, event_start=40, n_events=4, tracks=3, chunk_steps=50)
+    kw = dict(seed=7, event_start=40, n_events=4, tracks=3, chunk_steps=50,
+              device="cpu")
     short = fano_noise(n_steps=100, **kw)
     long = fano_noise(n_steps=250, **kw)
     torch.testing.assert_close(long[:100], short, rtol=0, atol=0)
 
 
 def test_streams_differ_by_seed_and_event():
-    kw = dict(event_start=0, n_events=2, tracks=1, n_steps=64, chunk_steps=64)
+    kw = dict(event_start=0, n_events=2, tracks=1, n_steps=64, chunk_steps=64,
+              device="cpu")
     a = fano_noise(seed=1, **kw)
     b = fano_noise(seed=2, **kw)
     assert not torch.equal(a, b)

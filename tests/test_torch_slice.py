@@ -1,5 +1,7 @@
 """The port's detector step as a whole against the JAX package's, and its
-run_simulation writing Spyral HDF5.
+run_simulation writing Spyral HDF5; the fused-merge, one-stage-lookup
+configuration (K5, K6) against the JAX package's and against the port's
+default configuration.
 
 Both simulators run on the CPU (the JAX one with its default flags and no
 mesh: tests/conftest.py gives JAX 8 virtual devices, and a mesh would
@@ -80,7 +82,7 @@ def both():
     keys_e = jax.vmap(jax.random.split)(event_keys(key, E, 0))[:, 0]
     noise = _jax_fano_noise(keys_e, T, E * jsim.k_tracks, CHUNK)
     tsim = DetectorSimulator(torch_config(), Z, A,
-                             engine=EngineParams(**ENGINE))
+                             engine=EngineParams(**ENGINE), device="cpu")
     tsim.from_jax_state(jax_state(jsim))
     tout = tsim.simulate_batch(vert, mom, noise=noise, assemble=False)
     jnp_out = {k: np.asarray(v) for k, v in jout.items()}
@@ -165,11 +167,12 @@ def kine_file(tmp_path_factory):
     return path
 
 
-def _run(kine, outdir, writer_cls, point_budget=1024, **kw):
+def _run(kine, outdir, writer_cls, point_budget=1024, engine_kw=None, **kw):
     outdir.mkdir()
     config = torch_config()
     engine = EngineParams(n_time_steps=T, chunk_steps=CHUNK,
-                          point_budget=point_budget, events_per_batch=4)
+                          point_budget=point_budget, events_per_batch=4,
+                          **(engine_kw or {}))
     stats = run_simulation(config, kine, writer_cls(outdir, config),
                            engine=engine, seed=2, device="cpu", **kw)
     return stats
@@ -244,7 +247,8 @@ def test_device_default_and_cuda_tensor_routing():
     sim = DetectorSimulator(torch_config(), Z, A,
                             engine=EngineParams(n_time_steps=50,
                                                 chunk_steps=50,
-                                                point_budget=64))
+                                                point_budget=64),
+                            device="cpu")
     pipeline, _ = _tiny_setup(events_per_batch=2)
     vert, mom = (np.asarray(x) for x in
                  pipeline.run_batch(2, key=jax.random.PRNGKey(1)))
@@ -253,3 +257,198 @@ def test_device_default_and_cuda_tensor_routing():
     assert out["packed"].device == torch.device("cpu")
     assert (transport_cuda.launches, deposit_cuda.launches,
             sort_cuda.launches) == before
+
+
+# ----------------------------------------------------------------------- #
+# the fused-merge, one-stage-lookup configuration (K5, K6)
+
+FUSED = dict(merge="fused", lookup="one_stage")
+INTEGERS = ("pads", "tbs_i", "tbs", "labels", "events", "cloud_valid",
+            "counts", "n_points", "pool_overflow", "uniq_overflow",
+            "uniq_max")
+
+
+def _random_walk_tracks():
+    """The tracks of tests/test_sort_pallas.py:191-202."""
+    rng = np.random.default_rng(43)
+    e, k, t = 2, 2, 30
+    b = e * k
+    positions = np.zeros((t, b, 3), np.float32)
+    positions[:, :, 0] = np.cumsum(rng.normal(0, 0.004, (t, b)), 0)
+    positions[:, :, 1] = 0.08 + np.cumsum(rng.normal(0, 0.004, (t, b)), 0)
+    positions[:, :, 2] = rng.uniform(0.1, 0.99, (t, b))
+    electrons = rng.integers(0, 2000, (t, b)).astype(np.int32)
+    valid = rng.random((t, b)) < 0.9
+    labels = np.tile(np.arange(k, dtype=np.int32) + 2, e)
+    return dict(positions=positions, electrons=electrons, valid=valid,
+                track_labels=labels, n_events=e, tracks_per_event=k)
+
+
+def _chain_tracks():
+    """The decay chain of tests/test_end_to_end.py:182-216, 10B(3He,a)9B*
+    -> a + 5Li -> a + p: four charged tracks per event (rank_bits 2),
+    kinematics sampled by the JAX pipeline, transported by the port on
+    the CPU; the deposit stage's inputs are taken from the port's step."""
+    from attpc_engine_tpu import nuclear_map
+    from attpc_engine_tpu.kinematics import (
+        Decay,
+        ExcitationGaussian,
+        KinematicsPipeline,
+        KinematicsTargetMaterial,
+        PolarUniform,
+        Reaction,
+    )
+    from attpc_engine_tpu.nuclear import GasTarget
+    from attpc_engine_tpu_torch.detector import simulator
+
+    gas = GasTarget([(1, 2, 2)], 300.0, nuclear_map)
+    get = nuclear_map.get_data
+    pipeline = KinematicsPipeline(
+        [Reaction(target=get(5, 10), projectile=get(2, 3), ejectile=get(2, 4)),
+         Decay(parent=get(5, 9), residual_1=get(2, 4)),
+         Decay(parent=get(3, 5), residual_1=get(2, 4))],
+        [ExcitationGaussian(16.8, 0.2), ExcitationGaussian(0.0, 1.25),
+         ExcitationGaussian(0.0, 0.0)],
+        [PolarUniform(0.0, np.pi)] * 3,
+        24.0,
+        target_material=KinematicsTargetMaterial(
+            material=gas, z_range=(0.2, 0.8), rho_sigma=0.005),
+    )
+    e = 2
+    vert, mom = (np.asarray(x) for x in
+                 pipeline.run_batch(e, key=jax.random.PRNGKey(31)))
+    z, a = pipeline.get_proton_numbers(), pipeline.get_mass_numbers()
+    sim = DetectorSimulator(torch_config(), z, a, device="cpu",
+                            engine=EngineParams(n_time_steps=T,
+                                                chunk_steps=CHUNK,
+                                                point_budget=128))
+    assert sim.k_tracks == 4
+    seen = {}
+    real = simulator.deposit_and_merge
+
+    def spy(positions, electrons, valid, track_labels, pad_table, **kw):
+        seen.update(positions=positions.numpy(), electrons=electrons.numpy(),
+                    valid=valid.numpy(), track_labels=track_labels.numpy(),
+                    n_events=kw["n_events"],
+                    tracks_per_event=kw["tracks_per_event"])
+        return real(positions, electrons, valid, track_labels, pad_table,
+                    **kw)
+
+    simulator.deposit_and_merge = spy
+    try:
+        sim.simulate_batch(vert, mom, seed=4, assemble=False)
+    finally:
+        simulator.deposit_and_merge = real
+    return seen
+
+
+@pytest.mark.parametrize("tracks", [_random_walk_tracks, _chain_tracks],
+                         ids=["flagship", "chain"])
+def test_fused_one_stage_deposit_matches_jax(tracks):
+    """The port's deposit_and_merge(merge="fused", lookup="one_stage")
+    against the JAX one with pallas_lookup=True, pallas_sort="fused",
+    lookup_two_stage=False (interpret mode), on the same electrons and
+    wiggle: every integer exact; charges (gain 1) within rtol 1e-5 /
+    atol 1e-2, the bound of tests/test_sort_pallas.py:171-173."""
+    from attpc_engine_tpu.detector.deposition import deposit_and_merge as jdm
+    from tests.test_torch_host import jax_config
+
+    config = jax_config()
+    dev = config.device_arrays()
+    tr = tracks()
+    e = tr["n_events"]
+    kw = dict(grid_lo_mm=dev["grid_lo_mm"], grid_n_mm=dev["grid_n_mm"],
+              diffusion=config.det_params.diffusion,
+              efield=config.det_params.efield,
+              drift_velocity=config.drift_velocity, micromegas_edge=10.0,
+              length=1.0, mpgd_gain=1.0, n_events=e,
+              tracks_per_event=tr["tracks_per_event"], point_budget=128,
+              uniq_budget=4096)
+    args = [tr[k] for k in ("positions", "electrons", "valid",
+                            "track_labels")]
+    keys = event_keys(jax.random.PRNGKey(47), e)
+    ref = jdm(keys, *args, dev["key_grid_mm"], pallas_lookup=True,
+              pallas_sort="fused", lookup_two_stage=False,
+              plane_hi=dev["plane_hi"], plane_lo=dev["plane_lo"], **kw)
+    u = ref["pads"].shape[0] // e
+    wiggle = np.asarray(jax.vmap(
+        lambda kk: jax.random.uniform(kk, (u,), dtype=jax.numpy.float32))(
+            keys))
+    table = torch.from_numpy(
+        (dev["plane_hi"] * 128 + dev["plane_lo"]).astype(np.int32))
+    from attpc_engine_tpu_torch.detector.deposition import deposit_and_merge
+
+    got = deposit_and_merge(*(torch.from_numpy(np.asarray(a)) for a in args),
+                            table, wiggle=torch.from_numpy(wiggle), **FUSED,
+                            **kw)
+    for name in INTEGERS:
+        np.testing.assert_array_equal(got[name].numpy(),
+                                      np.asarray(ref[name]), err_msg=name)
+    np.testing.assert_allclose(got["charges"].numpy(),
+                               np.asarray(ref["charges"]), rtol=1e-5,
+                               atol=1e-2)
+    assert int(got["counts"].sum()) > 0
+
+
+def _smoke_sims(n_events, **engine):
+    from tests.test_torch_cuda import SMOKE
+
+    data = np.load(SMOKE)
+    sims = [DetectorSimulator(torch_config(), data["proton_numbers"],
+                              data["mass_numbers"], device="cpu",
+                              engine=EngineParams(
+                                  n_time_steps=T, events_per_batch=n_events,
+                                  **cfg, **engine))
+            for cfg in ({}, FUSED)]
+    return sims, data["vertices"][:n_events], data["momenta"][:n_events]
+
+
+def test_step_fused_configuration_matches_default():
+    """8 flagship events at full width through simulate_batch in both
+    configurations: the merged cloud's integers exact, charges within
+    rtol 1e-5 with a one-electron floor (tests/test_sort_pallas.py:221-230),
+    meta_i32 exact apart from rows near the ADC threshold (1 in 1,000)."""
+    n = 8
+    sims, vert, mom = _smoke_sims(n)
+    d, f = (s.simulate_batch(vert, mom, seed=1, assemble=False)
+            for s in sims)
+    for name in ("pads", "tbs_i", "labels", "events", "cloud_valid",
+                 "counts", "n_points"):
+        torch.testing.assert_close(f[name], d[name], rtol=0, atol=0,
+                                   msg=name)
+    gain = float(sims[0].config.det_params.mpgd_gain)
+    np.testing.assert_allclose(f["charges"].numpy() / gain,
+                               d["charges"].numpy() / gain, rtol=1e-5,
+                               atol=1.0)
+    dm, fm = d["meta_i32"].numpy(), f["meta_i32"].numpy()
+    np.testing.assert_array_equal(fm[n:], dm[n:])
+    assert np.abs(fm[:n] - dm[:n]).sum() <= max(1, dm[:n].sum() // 1000)
+    assert dm[:n].sum() > 0 and d["packed"].shape[1] == 2
+
+
+def test_run_simulation_fused_writes_spyral_files(kine_file, tmp_path):
+    """The fused configuration through run_simulation and SpyralWriter
+    writes the default configuration's clouds: the same events, and rows
+    equal apart from near-threshold rows (1 in 1,000); amplitudes in
+    electrons within rtol 1e-5 with a one-electron floor."""
+    from attpc_engine_tpu_torch.detector import get_response
+
+    config = torch_config()
+    per_electron = (float(get_response(config).max())
+                    * float(config.det_params.mpgd_gain))
+    _run(kine_file, tmp_path / "d", SpyralWriter)
+    stats = _run(kine_file, tmp_path / "f", SpyralWriter, engine_kw=FUSED)
+    assert stats["events"] == 8
+    d, f = _read(tmp_path / "d"), _read(tmp_path / "f")
+    assert d.keys() == f.keys() and d["attrs"] == f["attrs"]
+    names = [n for n in d if n.startswith("cloud_")]
+    n_rows = sum(len(d[n][0]) for n in names)
+    assert n_rows == stats["rows"] or abs(n_rows - stats["rows"]) <= max(
+        1, n_rows // 1000)
+    for name in names:
+        dd, ff = d[name][0], f[name][0]
+        if len(dd) == len(ff):
+            np.testing.assert_array_equal(ff[:, 5:], dd[:, 5:], err_msg=name)
+            np.testing.assert_allclose(ff[:, 3] / per_electron,
+                                       dd[:, 3] / per_electron, rtol=1e-5,
+                                       atol=1.0)

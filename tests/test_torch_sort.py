@@ -23,10 +23,9 @@ from attpc_engine_tpu_torch.detector import sort_cuda
 from attpc_engine_tpu_torch.detector.deposition import (
     KEY_SENTINEL,
     _merge_runs,
-    _pack64,
     _prefix_sum,
-    _unpack64,
 )
+from attpc_engine_tpu_torch.detector.sort_cuda import pack64, unpack64
 
 
 def _pairs(e, w, seed, sentinel_share=0.3):
@@ -49,9 +48,9 @@ def test_plain_sort_matches_pallas_pairs(seed):
     hi, lo = _pairs(E, W, seed)
     rh, rl = sort_pairs_pallas(jnp.asarray(hi), jnp.asarray(lo),
                                interpret=True, lane_mode="transpose")
-    g = sort_cuda.sort_rows(_pack64(torch.from_numpy(hi),
+    g = sort_cuda.sort_rows(pack64(torch.from_numpy(hi),
                                     torch.from_numpy(lo).view(torch.float32)))
-    k, v = _unpack64(g)
+    k, v = unpack64(g)
     np.testing.assert_array_equal(k.numpy(), np.asarray(rh))
     np.testing.assert_array_equal(v.view(torch.int32).numpy(), np.asarray(rl))
 
@@ -62,9 +61,9 @@ def test_plain_sort_rows_of_sentinels():
     lo[1] = 0
     rh, rl = sort_pairs_pallas(jnp.asarray(hi), jnp.asarray(lo),
                                interpret=True, lane_mode="transpose")
-    g = sort_cuda.sort_rows(_pack64(torch.from_numpy(hi),
+    g = sort_cuda.sort_rows(pack64(torch.from_numpy(hi),
                                     torch.from_numpy(lo).view(torch.float32)))
-    k, v = _unpack64(g)
+    k, v = unpack64(g)
     np.testing.assert_array_equal(k.numpy(), np.asarray(rh))
     np.testing.assert_array_equal(v.view(torch.int32).numpy(), np.asarray(rl))
 

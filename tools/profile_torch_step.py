@@ -1,15 +1,17 @@
 """Where the PyTorch port's detector step spends its device time.
 
 Runs the flagship batch (384 events of the committed smoke kinematics, the
-default engine parameters) on the card: two warm-up batches, then one batch
-under ``torch.profiler`` with CPU and CUDA activities. Prints the card's
-name and power limit, the step's wall time, the summed device time of its
-kernels and the device's idle share over the step, the device time by
-stage (record_function ranges), and the kernels with the most device time.
+default engine parameters, or with ``--fused`` the fused-merge, one-stage
+configuration ``merge="fused", lookup="one_stage"``) on the card: two
+warm-up batches, then one batch under ``torch.profiler`` with CPU and CUDA
+activities. Prints the card's name and power limit, the step's wall time,
+the summed device time of its kernels and the device's idle share over the
+step, the device time by stage (record_function ranges), and the kernels
+with the most device time.
 
 Run from the repository root on a machine with a CUDA card:
-``python3 tools/profile_torch_step.py [trace.json]``; with a path, the
-chrome trace of the profiled batch is written there.
+``python3 tools/profile_torch_step.py [--fused] [trace.json]``; with a
+path, the chrome trace of the profiled batch is written there.
 """
 
 import sys
@@ -30,6 +32,7 @@ STAGES = {
     (simulator, "fano_noise"): "fano_noise",
     (deposition, "_prefix_sum"): "prefix_sum",
     (deposition, "sort_rows"): "merge_sorts",
+    (deposition, "merge_runs_fused"): "merge_fused",
     (simulator, "deposit_and_merge"): "deposit_and_merge",
     (simulator, "sort_rows"): "convert_sort",
 }
@@ -46,10 +49,15 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 2
-    print(f"card: {chip_smoke.card_line()}")
+    args = sys.argv[1:]
+    fused = "--fused" in args
+    args = [a for a in args if a != "--fused"]
+    print(f"card: {chip_smoke.card_line()}; configuration "
+          f"{'fused' if fused else 'default'}")
     for (mod, attr), name in STAGES.items():
         setattr(mod, attr, _ranged(name, getattr(mod, attr)))
-    sim, vert, mom = chip_smoke.flagship_simulator("cuda")
+    engine = dict(merge="fused", lookup="one_stage") if fused else {}
+    sim, vert, mom = chip_smoke.flagship_simulator("cuda", **engine)
     b = chip_smoke.BATCH
 
     def step(i):
@@ -76,8 +84,8 @@ def main() -> int:
           f"{dev_us / 1e3:.3f} ms; device idle share "
           f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}; steps_alive "
           f"{int(meta[-2])}")
-    print("device span by stage (ms; deposit_and_merge holds merge_sorts "
-          "and prefix_sum):")
+    print("device span by stage (ms; deposit_and_merge holds merge_sorts, "
+          "prefix_sum and merge_fused):")
     for e in events:
         if (e.key in STAGES.values()
                 and e.device_type == torch.autograd.DeviceType.CUDA):
@@ -88,8 +96,8 @@ def main() -> int:
         print(f"  {e.self_device_time_total / 1e3:9.3f} {e.count:6d}  "
               f"{e.key[:90]}")
     print(f"kernel launches in the step: {sum(e.count for e in kern)}")
-    if len(sys.argv) > 1:
-        prof.export_chrome_trace(sys.argv[1])
+    if args:
+        prof.export_chrome_trace(args[0])
     return 0
 
 
