@@ -1,4 +1,8 @@
-// K3: row-wise ascending sort of int64 [E, W] (bitonic network).
+// K3, wide route: row-wise ascending sort of int64 [E, W] (bitonic network)
+// for rows wider than the cluster route holds (csrc/sort_cluster.cu takes
+// rows of up to 16 CTAs' shared memory, 213,760 elements; the wrapper,
+// detector/sort_cuda.py, chooses by width before any launch). Such rows
+// come from the later budget doublings of run_simulation's overflow retry.
 //
 // Replaces the Pallas kernel attpc_engine_tpu/detector/sort_pallas.py
 // `_sort_kernel` (called by sort_pairs_pallas, and by sort_i64_pallas
@@ -11,17 +15,15 @@
 // is bit-exact whatever the network.
 //
 // What bounds it on the card: bytes moved through device memory. A row of
-// the merge sort is 131,072 x 8 B = 1 MB, too large for one SM's 227 KB of
-// shared memory, and the network has 153 compare-exchange stages. The
-// design runs every stage whose partners lie within one 16,384-element
-// (128 KB) tile inside shared memory: one kernel sorts each tile (105
-// stages, the direction of each tile chosen so the tiles form bitonic
-// runs), and for each later phase one kernel per distance >= the tile
-// size does a pass through device memory, followed by one shared-memory
-// kernel that finishes the phase's smaller distances. At 131,072 that is
-// 6 passes through device memory plus 4 tile loads instead of 153. Rows
-// of at most 16,384 elements (the convert sort) are one block each, the
-// whole network in shared memory.
+// 2^18 or more padded elements is 2 MB or more, too large for one SM's
+// 227 KB of shared memory, and the network has log2(n)(log2(n)+1)/2
+// compare-exchange stages. The design runs every stage whose partners lie
+// within one 16,384-element (128 KB) tile inside shared memory: one kernel
+// sorts each tile (105 stages, the direction of each tile chosen so the
+// tiles form bitonic runs), and for each later phase one kernel per
+// distance >= the tile size does a pass through a device-memory scratch,
+// followed by one shared-memory kernel that finishes the phase's smaller
+// distances.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,13 +102,15 @@ __global__ void bitonic_global_kernel(long long* __restrict__ data,
 }  // namespace
 
 // in [rows, width] -> out [rows, width], each row sorted ascending.
-// `total` is width rounded up to a power of two (>= 2). Where total exceeds
-// one tile, `scratch` must hold rows * total elements; it may be null
-// otherwise. Returns the first cudaError_t met.
+// `total` is width rounded up to a power of two, larger than one tile;
+// `scratch` holds rows * total elements. Returns the first cudaError_t met.
 extern "C" int attpc_sort_rows_i64(const void* in, void* out, void* scratch,
                                    int rows, int64_t width, int64_t total,
                                    void* stream) {
   if (rows <= 0 || width <= 0) return (int)cudaSuccess;
+  if (total <= kTile || total < width || (total & (total - 1))) {
+    return (int)cudaErrorInvalidValue;
+  }
   cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err = cudaFuncSetAttribute(
       bitonic_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -115,15 +119,6 @@ extern "C" int attpc_sort_rows_i64(const void* in, void* out, void* scratch,
 
   const long long* src = (const long long*)in;
   long long* dst = (long long*)out;
-  if (total <= kTile) {
-    int tile = (int)total;
-    int threads = tile / 2 < kThreads ? tile / 2 : kThreads;
-    dim3 grid(1, rows);
-    bitonic_tile_kernel<<<grid, threads, tile * sizeof(long long), st>>>(
-        src, width, width, dst, width, width, tile, 2, total);
-    return (int)cudaGetLastError();
-  }
-
   long long* buf = (long long*)scratch;
   const size_t smem = kTile * sizeof(long long);
   dim3 tiles((unsigned)(total / kTile), rows);

@@ -30,7 +30,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("transport.cu", "deposit.cu", "sort_rows.cu", "merge_fused.cu")
+SOURCES = ("transport.cu", "deposit.cu", "sort_cluster.cu", "sort_rows.cu",
+           "merge_fused.cu")
 LIBRARY = "libattpc_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -113,10 +114,14 @@ def _declare(lib: ctypes.CDLL) -> None:
         [vp] * 5 + [i64, i32, i32, vp])
     lib.attpc_pad_lookup.argtypes = [vp] * 4 + [i64, vp]
     lib.attpc_sort_rows_i64.argtypes = [vp, vp, vp, i32, i64, i64, vp]
+    lib.attpc_sort_rows_cluster.argtypes = [vp, vp, i32, i64, i32, i32, vp]
+    lib.attpc_sort_rows_cluster_occupancy.argtypes = [
+        i32, i32, ctypes.POINTER(i32)]
     lib.attpc_merge_tail.argtypes = [vp] * 4 + [i32, i64, i32, i32, vp]
     for fn in (lib.attpc_rk4_window, lib.attpc_packed_key_lookup,
                lib.attpc_packed_key_lookup_rows, lib.attpc_pad_lookup,
-               lib.attpc_sort_rows_i64, lib.attpc_merge_tail):
+               lib.attpc_sort_rows_i64, lib.attpc_sort_rows_cluster,
+               lib.attpc_sort_rows_cluster_occupancy, lib.attpc_merge_tail):
         fn.restype = ctypes.c_int
     lib.attpc_error_string.argtypes = [i32]
     lib.attpc_error_string.restype = ctypes.c_char_p

@@ -19,24 +19,31 @@ Phases (each raises on failure, and nothing is caught):
    pad ids (393,216 points; bit-exact), K5 fused merge ([384, 102400], cap
    12,288; key2 and n_uniq exact, c2 bit-exact) on the flagship's own merge
    keys (rank_bits 1, taken from a fused batch) and on synthetic keys
-   (rank_bits 2). Times by CUDA events, beside each kernel's bound (bytes
-   over 3.35 TB/s or f32 operations over 67 TFLOP/s, whichever is larger)
-   and, where one PyTorch call computes the same function, that call's
-   time.
+   (rank_bits 2). K3 is held on each of its shapes and routes: synthetic
+   merge rows and the flagship's own merge rows (taken from a default
+   batch) at [384, 102400] and convert rows at [384, 12288] on the cluster
+   route (8 and 1 CTAs), the first overflow-retry doubling [384, 204800]
+   (16 CTAs) and [384, 409600] on the wide route; each must take the
+   route ``sort_cuda.route`` gives it and the cluster route must allocate
+   nothing but its output. Times by CUDA events, beside each kernel's
+   bound (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
+   whichever is larger) and, where one PyTorch call computes the same
+   function, that call's time.
 4. The main path: the flagship configuration (12C(d,p) at 120 MeV through
    D2 at 300 Torr, the default AT-TPC detector) at the default engine
    parameters with 384 events per batch, four batches of the committed
    kinematics (``attpc_engine_tpu_torch/data/smoke_kinematics.npz``)
    through ``DetectorSimulator.simulate_batch`` and the host Spyral
    assembly. h5py is not required on the card, so the HDF5 writers are not
-   driven here. K1, K2 and K3 must have been launched by this phase; the
-   rows must be well formed; eight events run on the card must agree with
-   the same eight run on the CPU through the plain versions.
+   driven here. K1, K2 and K3 must have been launched by this phase, K3
+   on its cluster route only; the rows must be well formed; eight events
+   run on the card must agree with the same eight run on the CPU through
+   the plain versions.
 4b. The fused configuration, ``EngineParams(merge="fused",
-   lookup="one_stage")``, over the same four batches at full width: K1, K3,
-   K5 and K6 must have been launched and K2 not; its first batch's merged
-   cloud must equal the default configuration's in every integer, with
-   charges within rtol 1e-5 and a one-electron floor.
+   lookup="one_stage")``, over the same four batches at full width: K1, K3
+   (cluster route only), K5 and K6 must have been launched and K2 not; its
+   first batch's merged cloud must equal the default configuration's in
+   every integer, with charges within rtol 1e-5 and a one-electron floor.
 4c. The pad-id entry point ``deposit_cuda.pad_lookup`` at 393,216 points:
    K7 must have been launched.
 5. One JSON line of kernel results, the card line, and the last line
@@ -77,7 +84,7 @@ KERNELS = {
                 "attpc_engine_tpu_torch/csrc/deposit.cu",
                 "attpc_engine_tpu/detector/deposit_pallas.py:210", "default"),
     "sort_rows": ("sort_cuda", "launches",
-                  "attpc_engine_tpu_torch/csrc/sort_rows.cu",
+                  "attpc_engine_tpu_torch/csrc/sort_cluster.cu",
                   "attpc_engine_tpu/detector/sort_pallas.py:366", "default"),
     "merge_fused": ("merge_cuda", "launches",
                     "attpc_engine_tpu_torch/csrc/merge_fused.cu",
@@ -91,6 +98,11 @@ KERNELS = {
                    "attpc_engine_tpu/detector/deposit_pallas.py:111",
                    "pad_lookup"),
 }
+
+
+# per-route launch counters beside a kernel's total
+ROUTES = {"sort_rows": {"cluster": "launches_cluster",
+                        "wide": "launches_wide"}}
 
 
 def card_line() -> str:
@@ -136,11 +148,19 @@ def _wrapper(name: str):
 def reset_counts() -> None:
     for name, (_, counter, *_rest) in KERNELS.items():
         setattr(_wrapper(name), counter, 0)
+        for route_counter in ROUTES.get(name, {}).values():
+            setattr(_wrapper(name), route_counter, 0)
 
 
 def read_counts() -> dict:
     return {name: getattr(_wrapper(name), counter)
             for name, (_, counter, *_rest) in KERNELS.items()}
+
+
+def read_routes() -> dict:
+    """Launches of each route of the kernels that have routes."""
+    return {name: {r: getattr(_wrapper(name), c) for r, c in routes.items()}
+            for name, routes in ROUTES.items()}
 
 
 def flagship_simulator(device, **engine):
@@ -327,9 +347,10 @@ def check_pad_lookup(sim, inputs, card: str) -> dict:
             "library_ms": library_ms}
 
 
-def check_sort(width: int, convert: bool, card: str) -> dict:
-    """K3 against torch.sort on rows like the merge's or the convert's;
-    torch.sort is also the library call."""
+def sort_inputs(width: int, convert: bool) -> torch.Tensor:
+    """[384, width] int64 rows like the convert sort's (signed keys,
+    dropped rows INT64_MAX) or the merge sorts' (pack64 of keys with long
+    equal runs and sentinel lanes)."""
     from attpc_engine_tpu_torch.detector import sort_cuda
 
     g = torch.Generator(device="cuda").manual_seed(SEED + width)
@@ -338,28 +359,73 @@ def check_sort(width: int, convert: bool, card: str) -> dict:
         # keep bit, 511 - tb, pad, label, f32 charge bits; dropped rows max
         x = torch.randint(0, 2**62, shape, generator=g, device="cuda")
         keep = torch.rand(shape, generator=g, device="cuda") < 0.5
-        x = torch.where(keep, x | (-2**63), 2**63 - 1)
-    else:
-        # pack64(key, charge): keys with long equal runs, sentinel lanes
-        key = torch.randint(0, 6000, shape, generator=g, device="cuda") << 1
-        dead = torch.rand(shape, generator=g, device="cuda") < 0.4
-        key = torch.where(dead, 2**31 - 1, key)
-        q = torch.rand(shape, generator=g, device="cuda") * 100
-        q = torch.where(dead, 0.0, q)
-        x = sort_cuda.pack64(key, q)
+        return torch.where(keep, x | (-2**63), 2**63 - 1)
+    key = torch.randint(0, 6000, shape, generator=g, device="cuda") << 1
+    dead = torch.rand(shape, generator=g, device="cuda") < 0.4
+    key = torch.where(dead, 2**31 - 1, key)
+    q = torch.rand(shape, generator=g, device="cuda") * 100
+    q = torch.where(dead, 0.0, q)
+    return sort_cuda.pack64(key, q)
+
+
+def flagship_sort_rows(sim, vertices, momenta) -> torch.Tensor:
+    """The rows the first default batch hands its first merge sort: the
+    flagship's own pack64(key, charge) elements."""
+    from attpc_engine_tpu_torch.detector import deposition
+
+    seen = []
+    real = deposition.sort_rows
+
+    def spy(x):
+        if not seen:
+            seen.append(x.clone())
+        return real(x)
+
+    deposition.sort_rows = spy
+    try:
+        sim.simulate_batch(vertices[:BATCH], momenta[:BATCH], seed=SEED,
+                           assemble=False)
+    finally:
+        deposition.sort_rows = real
+    return seen[0]
+
+
+def check_sort(x: torch.Tensor, label: str, route: tuple, card: str) -> dict:
+    """K3 against torch.sort (also the library call) on rows ``x``: bit-
+    exact, on the expected (route, n_cta), and on the cluster route with
+    no allocation but the output."""
+    from attpc_engine_tpu_torch.detector import sort_cuda
+
+    r = sort_cuda.route(x.shape[1])
+    if (r.name, r.n_cta) != route:
+        raise AssertionError(f"K3 {label}: route {r}, expected {route}")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     got = sort_cuda.sort_rows_cuda(x)
+    extra = torch.cuda.max_memory_allocated() - before
+    # the allocator may hand out up to 1 MiB more than it was asked for
+    if r.name == "cluster" and extra > x.numel() * 8 + (1 << 20):
+        raise AssertionError(f"K3 {label}: allocated {extra} B, the output "
+                             f"is {x.numel() * 8} B")
     ref = sort_cuda.sort_rows_plain(x)
     n_bad = int((got != ref).sum())
     if n_bad:
-        raise AssertionError(f"K3 at {shape}: {n_bad} elements differ")
-    ms = cuda_ms(lambda: sort_cuda.sort_rows_cuda(x), 10)
-    plain_ms = cuda_ms(lambda: sort_cuda.sort_rows_plain(x), 10)
+        raise AssertionError(f"K3 {label} {list(x.shape)}: {n_bad} elements "
+                             f"differ")
+    del got, ref
+    reps = 10 if x.shape[1] <= 2**18 else 3
+    ms = cuda_ms(lambda: sort_cuda.sort_rows_cuda(x), reps)
+    plain_ms = cuda_ms(lambda: sort_cuda.sort_rows_plain(x), reps)
     bnd = bound(2 * x.numel() * 8)
-    print(f"K3 row sort {list(shape)}: bit-exact; kernel {ms:.3f} ms, "
-          f"plain (torch.sort, the library call) {plain_ms:.3f} ms, bound "
-          f"{bnd['bound_ms']:.4f} ms [{card}]")
+    print(f"K3 row sort, {label} {list(x.shape)}: bit-exact; route {r.name}"
+          f"{f' ({r.n_cta} CTAs of {r.chunk})' if r.n_cta else ''}, "
+          f"{extra} B allocated; kernel {ms:.3f} ms, plain (torch.sort, the "
+          f"library call) {plain_ms:.3f} ms, ratio {ms / plain_ms:.3f}, "
+          f"bound {bnd['bound_ms']:.4f} ms [{card}]")
     return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **bnd,
-            "library_ms": plain_ms}
+            "library_ms": plain_ms, "k3_route": r.name, "n_cta": r.n_cta,
+            "width": x.shape[1]}
 
 
 def flagship_merge_inputs(sim_fused, vertices, momenta):
@@ -499,12 +565,17 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
         asm_s.append(t2 - t1)
         rows += total
     launches = read_counts()
+    routes = read_routes()
     missing = [k for k in must_launch if launches[k] == 0]
     extra = [k for k in must_not if launches[k] != 0]
     if missing or extra:
         raise AssertionError(f"{label}: kernels of the path never launched "
                              f"{missing}, kernels off the path launched "
                              f"{extra}: {launches}")
+    k3 = routes["sort_rows"]
+    if k3["cluster"] == 0 or k3["wide"] != 0:
+        raise AssertionError(f"{label}: K3 must take its cluster route "
+                             f"only at the flagship's widths: {k3}")
     timed = step_s[1:]  # the first batch is warm-up
     ms = 1e3 * float(np.mean(timed))
     print(f"{label} path: {len(step_s)} batches of {BATCH} events, {rows} rows;"
@@ -512,8 +583,8 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
           f"(first excluded: mean {ms:.3f} ms/batch, "
           f"{BATCH / np.mean(timed):.1f} events/s); host assembly "
           f"{1e3 * float(np.mean(asm_s[1:])):.3f} ms/batch; launches {launches}"
-          f" [{card}]")
-    return {"launches": launches, "ms_per_batch": ms,
+          f", K3 by route {k3} [{card}]")
+    return {"launches": launches, "routes": routes, "ms_per_batch": ms,
             "events_per_s": BATCH / float(np.mean(timed)), "first": first}
 
 
@@ -548,7 +619,7 @@ def pad_lookup_path(inputs, table, card: str) -> dict:
         raise AssertionError(f"pad_lookup entry point: {launches}")
     print(f"pad_lookup entry point: {tuple(pads.shape)} pad ids; launches "
           f"{launches} [{card}]")
-    return {"launches": launches}
+    return {"launches": launches, "routes": read_routes()}
 
 
 def check_against_cpu(sim_gpu, vertices, momenta, n: int = 8) -> None:
@@ -595,18 +666,30 @@ def main() -> int:
     sim_fused, _, _ = flagship_simulator("cuda", **fused_cfg)
     inputs = lookup_inputs(sim)
     w, cap = sim.engine.point_budget * 100, sim.engine.uniq_budget
+    sorts = {
+        "merge": check_sort(sort_inputs(w, False), "synthetic merge rows",
+                            ("cluster", 8), card),
+        "flagship": check_sort(flagship_sort_rows(sim, vertices, momenta),
+                               "flagship merge rows", ("cluster", 8), card),
+        "convert": check_sort(sort_inputs(cap, True), "convert rows",
+                              ("cluster", 1), card),
+        "retry": check_sort(sort_inputs(2 * w, False),
+                            "first overflow-retry width", ("cluster", 16),
+                            card),
+        "wide": check_sort(sort_inputs(4 * w, False), "wide-route rows",
+                           ("wide", 0), card),
+    }
     res = {
         "transport": check_transport(sim, vertices[:BATCH], momenta[:BATCH],
                                      card),
         "deposit": check_deposit(sim, inputs, card),
-        "sort_rows": check_sort(w, False, card),
+        "sort_rows": sorts["merge"],
         "packed_key_lookup_rows": check_rows_lookup(sim, inputs, card),
         "pad_lookup": check_pad_lookup(sim, inputs, card),
         "merge_fused": check_merge_fused(
             flagship_merge_inputs(sim_fused, vertices, momenta),
             "flagship keys", card),
     }
-    convert = check_sort(cap, True, card)
     synthetic = check_merge_fused(synthetic_merge_inputs(w, cap, 2),
                                   "synthetic keys", card)
 
@@ -634,10 +717,15 @@ def main() -> int:
                                     for p in paths},
                **res[name]}
         if name == "sort_rows":
-            row.update(convert_ms=convert["ms"],
-                       convert_plain_ms=convert["plain_ms"],
-                       convert_bound_ms=convert["bound_ms"],
-                       convert_library_ms=convert["library_ms"])
+            row["wide_source"] = "attpc_engine_tpu_torch/csrc/sort_rows.cu"
+            for key in ("convert", "flagship", "retry", "wide"):
+                row.update({f"{key}_{k}": sorts[key][k] for k in (
+                    "ms", "plain_ms", "bound_ms", "library_ms")})
+            row["shapes"] = {key: {k: v[k] for k in (
+                "width", "k3_route", "n_cta", "ms", "library_ms", "bound_ms")}
+                for key, v in sorts.items()}
+            row["launches_by_route"] = {p: paths[p]["routes"][name]
+                                        for p in paths}
         if name == "merge_fused":
             row.update(synthetic_ms=synthetic["ms"],
                        synthetic_plain_ms=synthetic["plain_ms"],

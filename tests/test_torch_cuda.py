@@ -7,9 +7,9 @@ the JAX package (the card's Python needs neither jax nor h5py for it):
     python -m pytest -q tests/test_torch_cuda.py
 
 Bounds: K1 alive flags exact, positions within 1e-6 m, |dKE| within
-1e-4 MeV (tests/test_transport_pallas.py); K2, K3, K6 and K7 bit-exact; K5
-key2 and n_uniq exact and c2 bit-exact. A wrapper given a CUDA tensor it
-cannot take raises: nothing falls back.
+1e-4 MeV (tests/test_transport_pallas.py); K2, K3 (both routes), K6 and K7
+bit-exact; K5 key2 and n_uniq exact and c2 bit-exact. A wrapper given a
+CUDA tensor it cannot take raises: nothing falls back.
 """
 
 from pathlib import Path
@@ -93,18 +93,68 @@ def test_transport_kernel_matches_plain(cuda_device):
     assert torch.equal(cr[2], cg[2])  # the carried alive flags
 
 
-@pytest.mark.parametrize("w", [2, 300, 16384, 40000, 102400])
-def test_sort_kernel_matches_torch_sort(cuda_device, w):
+def _sort_rows(w: int) -> torch.Tensor:
+    """Nine int64 rows of width ``w``: pack64 merge pairs with sentinel
+    lanes (rows 0 and 3), a row of sentinels (1) and the hazards of the
+    cluster route: (d) signed keys (2, 7, 8), (a) many elements sharing a
+    low digit and differing in higher ones (4), (e) a row of one value
+    (5, and 1) and a row where only the top digit varies (6)."""
     rng = np.random.default_rng(w)
     hi = rng.integers(0, 7, (4, w)).astype(np.int32) * 1000
     hi[rng.random((4, w)) < 0.3] = SENT
     lo = np.float32(rng.random((4, w)) * 100)
-    x = sort_cuda.pack64(torch.from_numpy(hi),
-                         torch.from_numpy(lo)).to(cuda_device)
-    x[1] = 2**63 - 1  # a row of sentinels
-    x[2] = -x[2]  # signed keys
+    x = sort_cuda.pack64(torch.from_numpy(hi), torch.from_numpy(lo)).numpy()
+    x[1] = 2**63 - 1
+    x[2] = -x[2]
+    low_digit = (rng.integers(-2**47, 2**47, w) << 8) | rng.integers(0, 2, w)
+    one_value = np.full(w, -12345)
+    top_digit = (rng.integers(-128, 128, w) << 56) | 0x0123456789ABCD
+    mixed = rng.integers(-2**63, 2**63 - 1, w, endpoint=True)
+    mixed[:4] = [-2**63, -1, 0, 2**63 - 1][:w]
+    convert = np.where(rng.random(w) < 0.6,
+                       rng.integers(0, 2**62, w) | -2**63, 2**63 - 1)
+    return torch.from_numpy(np.concatenate(
+        [x, np.stack([low_digit, one_value, top_digit, mixed, convert])]))
+
+
+@pytest.mark.parametrize("w", [1, 2, 300, 12288, 12289, 16384, 40000,
+                               102400, 204803, 262145])
+def test_sort_kernel_matches_torch_sort(cuda_device, w):
+    """Bit-exact on both routes: one CTA (1-12,289; 12,289 ragged), 2-8
+    CTAs (16,384-102,400), 16 CTAs with a ragged last chunk (204,803) and
+    the wide route (262,145)."""
+    x = _sort_rows(w).to(cuda_device)
     got = sort_cuda.sort_rows(x)
     assert torch.equal(got, torch.sort(x, dim=1).values)
+
+
+@pytest.mark.parametrize("w", [12288, 102400])
+def test_sort_kernel_many_rows(cuda_device, w):
+    """(b): 384 rows, many more clusters than the card holds at once, so
+    clusters start while others finish; merge-like rows."""
+    g = torch.Generator(device=cuda_device).manual_seed(w)
+    key = torch.randint(0, 6000, (384, w), generator=g, device=cuda_device)
+    dead = torch.rand((384, w), generator=g, device=cuda_device) < 0.4
+    key = torch.where(dead, SENT, key << 1)
+    q = torch.rand((384, w), generator=g, device=cuda_device) * 100
+    x = sort_cuda.pack64(key, torch.where(dead, 0.0, q))
+    assert torch.equal(sort_cuda.sort_rows(x), torch.sort(x, dim=1).values)
+
+
+def test_sort_routes_by_width(cuda_device):
+    """The flagship's merge width launches only the cluster route, a row
+    wider than 16 CTAs hold only the wide route; ``launches`` is their
+    sum."""
+    for w, name in ((102400, "cluster"), (262145, "wide")):
+        before = (sort_cuda.launches_cluster, sort_cuda.launches_wide,
+                  sort_cuda.launches)
+        sort_cuda.sort_rows(torch.zeros((2, w), dtype=torch.int64,
+                                        device=cuda_device))
+        after = (sort_cuda.launches_cluster, sort_cuda.launches_wide,
+                 sort_cuda.launches)
+        delta = tuple(a - b for a, b in zip(after, before))
+        assert delta == ((1, 0, 1) if name == "cluster" else (0, 1, 1))
+        assert sort_cuda.route(w).name == name
 
 
 def test_sort_kernel_rejects_what_it_cannot_take(cuda_device):

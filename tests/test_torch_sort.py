@@ -8,6 +8,9 @@ signed int64. ``_merge_runs`` must give the same integers and the same run
 sums within rtol 1e-5 / atol 1e-2 (tests/test_sort_pallas.py:171-172).
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -120,3 +123,45 @@ def test_prefix_sum_associates_as_jax_cumsum(w):
                                                   dtype=jnp.float32))(x))
     np.testing.assert_array_equal(_prefix_sum(torch.from_numpy(x)).numpy(),
                                   ref)
+
+
+@pytest.mark.parametrize("w,name,n_cta", [
+    (1, "cluster", 1), (12288, "cluster", 1), (102400, "cluster", 8),
+    (204800, "cluster", 16), (409600, "wide", 0),
+])
+def test_sort_route_rule(w, name, n_cta):
+    """K3's width rule: the smallest cluster whose CTAs hold the row, each
+    an even chunk within a block's 232,448 B of shared memory, else the
+    wide route."""
+    r = sort_cuda.route(w)
+    assert (r.name, r.n_cta) == (name, n_cta)
+    if r.name == "cluster":
+        assert r.chunk % 2 == 0 and r.n_cta * r.chunk >= w
+        assert r.shared_bytes == 16 * r.chunk + sort_cuda.FIXED_BYTES
+        assert r.shared_bytes <= sort_cuda.SHARED_BYTES == 232_448
+        smaller = [n for n in sort_cuda.CLUSTER_SIZES if n < r.n_cta]
+        assert not smaller or smaller[-1] * sort_cuda.CTA_CAPACITY < w
+    else:
+        assert w > sort_cuda.CLUSTER_SIZES[-1] * sort_cuda.CTA_CAPACITY
+    assert sort_cuda.route(16 * sort_cuda.CTA_CAPACITY).shared_bytes <= (
+        sort_cuda.SHARED_BYTES)
+
+
+def test_sort_route_constants_match_the_kernel_source():
+    """The wrapper's shared-memory arithmetic is the kernel's."""
+    src = (Path(sort_cuda.__file__).resolve().parents[1] / "csrc"
+           / "sort_cluster.cu").read_text()
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+    assert const("kThreads") == sort_cuda.CTA_THREADS
+    assert const("kDigits") == sort_cuda.DIGITS
+    assert const("kMaxShared") == sort_cuda.SHARED_BYTES
+    assert const("kMaxCluster") == sort_cuda.CLUSTER_SIZES[-1]
+    tail = re.search(r"constexpr int kFixedBytes = "
+                     r"kWarps \* kDigits \* 2 \+ 2 \* kDigits \* 4 \+ (\d+);",
+                     src)[1]
+    warps = sort_cuda.CTA_THREADS // 32
+    assert sort_cuda.FIXED_BYTES == (warps * sort_cuda.DIGITS * 2
+                                     + 2 * sort_cuda.DIGITS * 4 + int(tail))
