@@ -1,4 +1,5 @@
-"""K2, K6 and K7 wrappers: pad lookups over the diffusion mesh.
+"""K2, K6 and K7 wrappers: pad lookups over the diffusion mesh; the
+deposit-rows kernel of the default step.
 
 Kernels: ``csrc/deposit.cu``. ``attpc_packed_key_lookup`` (K2) replaces the
 Pallas kernel ``attpc_engine_tpu/detector/deposit_pallas.py``
@@ -14,15 +15,27 @@ store); K6 and K7 one thread per (point, x cell) row, ten gathers along one
 table row and ten consecutive stores. The TPU kernels' one-hot matrix
 products and bf16 table planes have no place here.
 
+``attpc_deposit_rows`` (``csrc/deposit_rows.cu``) is the default step's
+(``merge="sorts"``, ``lookup="two_stage"``) deposit in one kernel: the
+10x10 diffusion mesh of each point, K2's lookup and key,
+the pixel charges and their mask, written as the int64 rows
+``pack64(key, charge)`` that the first merge sort takes. It reads ~21 B a
+point and writes 800 B, so bytes bound it too; the K2 kernel keeps the TPU
+kernel's int32 contract for the configurations that feed K5. Its plain
+version and the entry point that chooses between the two are
+``deposition.deposit_rows_plain`` and ``deposition.deposit_rows``, beside
+the mesh they share with the other configurations.
+
 ``packed_key_lookup``, ``packed_key_lookup_rows`` and ``pad_lookup`` take
 their plain versions for CPU tensors and launch their kernels for CUDA
 tensors, raising where a kernel cannot take them. ``launches``,
-``launches_rows`` and ``launches_pad_lookup`` count the launches of K2, K6
-and K7.
+``launches_rows``, ``launches_pad_lookup`` and ``launches_deposit_rows``
+count the launches of K2, K6, K7 and the rows kernel.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -40,11 +53,14 @@ __all__ = [
     "launches",
     "launches_rows",
     "launches_pad_lookup",
+    "deposit_rows_cuda",
+    "launches_deposit_rows",
 ]
 
 launches = 0  # K2
 launches_rows = 0  # K6
 launches_pad_lookup = 0  # K7
+launches_deposit_rows = 0  # the deposit-rows kernel
 
 
 def packed_key_lookup_plain(
@@ -167,3 +183,44 @@ def pad_lookup(ix, iy, table) -> torch.Tensor:
     if ix.is_cuda:
         return pad_lookup_cuda(ix, iy, table)
     return pad_lookup_plain(ix, iy, table)
+
+
+def deposit_rows_cuda(px, py, ptbf, pne, tbr, taken, table,
+                      grid_lo_mm: float, grid_n_mm: int, diffusion: float,
+                      efield: float, drift_velocity: float, rank_bits: int,
+                      mesh: np.ndarray, pdf: np.ndarray) -> torch.Tensor:
+    """Launch the deposit-rows kernel: arguments as
+    ``deposition.deposit_rows_plain``, then the mesh offsets [10] and the
+    pixel weights [10, 10] that version uses, as f32 numpy arrays (they go
+    to the kernel by value). Returns [E, pb * 100] int64 rows.
+
+    The scalars go in as the plain version's f32 operands on the card:
+    ``2.0 * diffusion * drift_velocity`` rounded once to f32, and the f32
+    reciprocal of f32(efield), since ATen's CUDA true division by a CPU
+    scalar multiplies by its reciprocal."""
+    global launches_deposit_rows
+    e, pb = px.shape
+    for name, x, dtype in (("px", px, torch.float32), ("py", py, torch.float32),
+                           ("ptbf", ptbf, torch.float32),
+                           ("pne", pne, torch.float32),
+                           ("tbr", tbr, torch.int32),
+                           ("taken", taken, torch.bool)):
+        kernels.require(x, name, dtype, (e, pb))
+    kernels.require(table, "table", torch.int32, (PAD_TABLE_NX, PAD_TABLE_NY))
+    mesh = np.ascontiguousarray(mesh, dtype=np.float32)
+    pdf = np.ascontiguousarray(pdf, dtype=np.float32)
+    if mesh.shape != (10,) or pdf.shape != (10, 10):
+        raise ValueError(f"mesh {mesh.shape}, pdf {pdf.shape}: expected (10,)"
+                         f" and (10, 10)")
+    k = np.float32(2.0 * diffusion * drift_velocity)
+    inv_e = np.float32(1.0) / np.float32(efield)
+    out = torch.empty((e, pb * 100), dtype=torch.int64, device=px.device)
+    ptr = kernels.ptr
+    err = kernels.library().attpc_deposit_rows(
+        ptr(px), ptr(py), ptr(ptbf), ptr(pne), ptr(tbr), ptr(taken),
+        ptr(table), mesh.ctypes.data, pdf.ctypes.data, ptr(out), e * pb,
+        float(k), float(inv_e), float(grid_lo_mm), int(grid_n_mm), rank_bits,
+        kernels.stream(px))
+    kernels.check(err, "attpc_deposit_rows")
+    launches_deposit_rows += 1
+    return out

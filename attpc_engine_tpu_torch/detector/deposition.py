@@ -14,9 +14,13 @@ reasoning behind each step):
    ``point_budget`` slots, with the overflow counted,
 3. the 10x10 diffusion mesh around each point: pixel coordinates, pixel
    charges, and the merge key ((pad * 512 + tb) << rank_bits) | rank of
-   every pixel from the pad-id table (``lookup="two_stage"``:
-   ``deposit_cuda.packed_key_lookup``, K2; ``"one_stage"``:
-   ``deposit_cuda.packed_key_lookup_rows``, K6),
+   every pixel from the pad-id table. The default configuration
+   (``merge="sorts"``, ``lookup="two_stage"``) does all of it in one kernel
+   (``deposit_rows``: ``deposit_cuda.deposit_rows_cuda`` on the card),
+   which writes the int64 rows the first merge sort takes; the others
+   build the mesh in PyTorch (``pixel_keys_charges``) and look the keys up
+   with ``deposit_cuda.packed_key_lookup`` (K2, ``lookup="two_stage"``) or
+   ``packed_key_lookup_rows`` (K6, ``"one_stage"``),
 4. the per-event merge of equal (pad, tb) keys (``_merge_runs``; with
    ``merge="sorts"`` two row sorts through ``sort_cuda.sort_rows``, K3,
    and a prefix sum; with ``"fused"`` ``merge_cuda.merge_runs_fused``, K5),
@@ -31,7 +35,12 @@ import numpy as np
 import torch
 
 from ..kernels import require_device
-from .deposit_cuda import packed_key_lookup, packed_key_lookup_rows
+from .deposit_cuda import (
+    deposit_rows_cuda,
+    packed_key_lookup,
+    packed_key_lookup_plain,
+    packed_key_lookup_rows,
+)
 from .merge_cuda import KEY_SENTINEL, fits_fused, merge_runs_fused
 from .parameters import PAD_TABLE_NX, PAD_TABLE_NY
 from .sort_cuda import pack64, sort_rows, unpack64
@@ -42,6 +51,9 @@ __all__ = [
     "fano_noise",
     "generate_electrons",
     "deposit_and_merge",
+    "deposit_rows",
+    "deposit_rows_plain",
+    "pixel_keys_charges",
     "MESH_STEPS",
     "MESH_1D",
     "KEY_SENTINEL",
@@ -227,42 +239,49 @@ def _merge_runs(packed: torch.Tensor, qv: torch.Tensor, cap: int,
     sentinel padding, sums [E, cap], valid2 [E, cap], n_uniq [E] — the
     unique count before capping).
 
-    ``merge="sorts"``: two row sorts (K3) around a prefix associated as
-    XLA's CPU cumsum. ``"fused"``: K5 (``merge_cuda.merge_runs_fused``),
-    whose prefix associates as the Pallas fused kernel's, for rows within
-    ``fits_fused``; wider rows keep the sorts path, as the JAX package's
-    width rule does (deposition.py:221-229). The integers are the same on
-    both paths; the sums may differ by ulps of the running prefix.
+    ``merge="sorts"``: ``_merge_rows`` of ``pack64(packed, qv)``.
+    ``"fused"``: K5 (``merge_cuda.merge_runs_fused``), whose prefix
+    associates as the Pallas fused kernel's, for rows within ``fits_fused``;
+    wider rows keep the sorts path, as the JAX package's width rule does
+    (deposition.py:221-229). The integers are the same on both paths; the
+    sums may differ by ulps of the running prefix.
     """
     if merge not in MERGES:
         raise ValueError(f"merge={merge!r}: expected one of {MERGES}")
-    e = packed.shape[0]
-    cap = min(cap, packed.shape[1])
-
     if merge == "fused" and fits_fused(packed.shape[1]):
-        key2, c2, n_uniq = merge_runs_fused(packed, qv, cap, rank_bits)
-    else:
-        def sort2(key, val):
-            return unpack64(sort_rows(pack64(key, val)))
+        key2, c2, n_uniq = merge_runs_fused(
+            packed, qv, min(cap, packed.shape[1]), rank_bits)
+        return _run_sums(key2, c2, n_uniq)
+    return _merge_rows(pack64(packed, qv), cap, rank_bits)
 
-        packed, qq = sort2(packed, qv)
-        # the deposition-last writer of a run sorts last: rank rides in the
-        # key's low bits
-        last = _run_last(packed >> rank_bits)
-        real_last = last & (packed != KEY_SENTINEL)
-        n_uniq = real_last.sum(dim=1, dtype=torch.int32)
 
-        # inclusive prefix of the sorted charges; dead lanes carry 0
-        c = _prefix_sum(qq)
+def _merge_rows(rows: torch.Tensor, cap: int, rank_bits: int):
+    """The sorts path of ``_merge_runs`` on rows already packed, int64
+    ``pack64(packed, qv)`` [E, W]: two row sorts (K3) around a prefix
+    associated as XLA's CPU cumsum. Returns as ``_merge_runs``."""
+    cap = min(cap, rows.shape[1])
+    packed, qq = unpack64(sort_rows(rows))
+    # the deposition-last writer of a run sorts last: rank rides in the
+    # key's low bits
+    last = _run_last(packed >> rank_bits)
+    real_last = last & (packed != KEY_SENTINEL)
+    n_uniq = real_last.sum(dim=1, dtype=torch.int32)
 
-        # compact the run ends (c is nondecreasing and run ends are already
-        # in key order, so the sort keeps the prefix order)
-        k2_full, c2_full = sort2(
-            torch.where(real_last, packed,
-                        torch.full_like(packed, KEY_SENTINEL)),
-            torch.where(real_last, c, torch.zeros_like(c)),
-        )
-        key2, c2 = k2_full[:, :cap], c2_full[:, :cap]
+    # inclusive prefix of the sorted charges; dead lanes carry 0
+    c = _prefix_sum(qq)
+
+    # compact the run ends (c is nondecreasing and run ends are already
+    # in key order, so the sort keeps the prefix order)
+    k2_full, c2_full = unpack64(sort_rows(pack64(
+        torch.where(real_last, packed, torch.full_like(packed, KEY_SENTINEL)),
+        torch.where(real_last, c, torch.zeros_like(c)),
+    )))
+    return _run_sums(k2_full[:, :cap], c2_full[:, :cap], n_uniq)
+
+
+def _run_sums(key2: torch.Tensor, c2: torch.Tensor, n_uniq: torch.Tensor):
+    """(key2, sums, valid2, n_uniq) from the run ends' keys and inclusive
+    prefix values c2 [E, cap]."""
     valid2 = key2 != KEY_SENTINEL
     prev = torch.cat([torch.zeros_like(c2[:, :1]), c2[:, :-1]], dim=1)
     # a prefix that is not strictly monotone in f32 may difference below 0
@@ -273,11 +292,98 @@ def _merge_runs(packed: torch.Tensor, qv: torch.Tensor, cap: int,
 
 def _pdf_area() -> torch.Tensor:
     """[10, 10] bivariate normal pdf times pixel area in sigma units,
-    computed once on the CPU in f32 so every device sees the same bits."""
+    computed on the CPU in f32 so every device sees the same bits."""
     mesh = torch.from_numpy(MESH_1D)
     step = 6.0 / (MESH_STEPS - 1)
     off2 = mesh[:, None] * mesh[:, None] + mesh[None, :] * mesh[None, :]
     return (step * step / (2.0 * math.pi)) * torch.exp(-0.5 * off2)
+
+
+# the pixel weights of the plain version and of the deposit-rows kernel
+PDF_AREA = _pdf_area()
+
+
+def pixel_keys_charges(lookup, px, py, ptbf, pne, tbr, taken, table,
+                       grid_lo_mm: float, grid_n_mm: int, diffusion: float,
+                       efield: float, drift_velocity: float, rank_bits: int):
+    """Merge keys and charges of the 10x10 diffusion mesh of P deposit
+    points in PyTorch passes around ``lookup`` (``packed_key_lookup``'s
+    signature: K2, K6 or their plain version), as the JAX package's
+    deposition.py:437-503 builds them. px, py (m), ptbf (float TB), pne
+    (electrons) [P] f32, tbr [P] int32, taken [P] bool. Pixels off the grid
+    or of an empty slot are aliased onto the pad table's sentinel padding.
+    Returns keys [P, 10, 10] int32 (KEY_SENTINEL where vetoed, off the
+    plane or empty) and charges [P, 10, 10] f32 (0 where the key is the
+    sentinel)."""
+    dev = px.device
+    f32, i32 = torch.float32, torch.int32
+    # sigma_t = sqrt(2 D dv t / E), t in (float) TBs (transporter.py:301)
+    sigma = torch.sqrt(2.0 * diffusion * drift_velocity * ptbf / efield)
+    has_diff = sigma > 0.0
+    sigma_safe = torch.where(has_diff, sigma, torch.ones_like(sigma))
+    mesh = torch.from_numpy(MESH_1D).to(dev)
+    x10 = px[:, None] + sigma_safe[:, None] * mesh[None, :]
+    y10 = py[:, None] + sigma_safe[:, None] * mesh[None, :]
+    # sigma == 0: all electrons on the point itself, through pixel (0, 0)
+    x10 = torch.where(has_diff[:, None], x10, px[:, None])
+    y10 = torch.where(has_diff[:, None], y10, py[:, None])
+
+    q_pix = pne[:, None, None] * PDF_AREA.to(dev)
+    q_point = torch.zeros((MESH_STEPS, MESH_STEPS), dtype=f32, device=dev)
+    q_point[0, 0] = 1.0
+    q_pix = torch.where(has_diff[:, None, None], q_pix,
+                        pne[:, None, None] * q_point)
+
+    # pixel cells; invalid pixels (off the plane, no point) are aliased
+    # onto the table's sentinel padding, as deposition.py:484-492
+    ix = torch.floor(x10 * 1000.0 - grid_lo_mm).to(i32)
+    iy = torch.floor(y10 * 1000.0 - grid_lo_mm).to(i32)
+    bad_x = (ix < 0) | (ix >= grid_n_mm) | ~taken[:, None]
+    bad_y = (iy < 0) | (iy >= grid_n_mm)
+    ix = torch.where(bad_x, torch.full_like(ix, PAD_TABLE_NX - 1), ix)
+    iy = torch.where(bad_y, torch.full_like(iy, PAD_TABLE_NY - 1), iy)
+    keys = lookup(ix.contiguous(), iy.contiguous(), tbr.contiguous(), table,
+                  rank_bits, KEY_SENTINEL)
+    return keys, torch.where(keys != KEY_SENTINEL, q_pix,
+                             torch.zeros_like(q_pix))
+
+
+def deposit_rows_plain(px, py, ptbf, pne, tbr, taken, table,
+                       grid_lo_mm: float, grid_n_mm: int, diffusion: float,
+                       efield: float, drift_velocity: float, rank_bits: int,
+                       lookup=packed_key_lookup_plain) -> torch.Tensor:
+    """Plain PyTorch version of the deposit-rows kernel.
+
+    Points in per-event windows [E, pb]: px, py (m), ptbf (float TB), pne
+    (electrons) f32, tbr int32 = (tb << rank_bits) | rank, taken bool (the
+    slot holds a point); table [560, 640] int32 pad ids; the grid's edge and
+    size in mm; the physics scalars as Python floats. Returns [E, pb * 100]
+    int64 ``pack64(key, charge)``: the merge key of every mesh pixel (K2's,
+    KEY_SENTINEL where vetoed, off the plane or empty) in the high word and
+    its charge in electrons (0 where the key is the sentinel) in the low.
+    ``lookup`` makes the keys (``packed_key_lookup``'s signature); with K2
+    (``deposit_cuda.packed_key_lookup_cuda``) this is the default step as
+    it was before the rows kernel.
+    """
+    e, pb = px.shape
+    keys, q = pixel_keys_charges(
+        lookup, *(a.reshape(-1) for a in (px, py, ptbf, pne, tbr, taken)),
+        table, grid_lo_mm, grid_n_mm, diffusion, efield, drift_velocity,
+        rank_bits)
+    return pack64(keys, q).reshape(e, pb * MESH_STEPS * MESH_STEPS)
+
+
+def deposit_rows(px, py, ptbf, pne, tbr, taken, table, grid_lo_mm: float,
+                 grid_n_mm: int, diffusion: float, efield: float,
+                 drift_velocity: float, rank_bits: int) -> torch.Tensor:
+    """The default step's int64 merge rows [E, pb * 100] (arguments as
+    ``deposit_rows_plain``): the deposit-rows kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    args = (px, py, ptbf, pne, tbr, taken, table, grid_lo_mm, grid_n_mm,
+            diffusion, efield, drift_velocity, rank_bits)
+    if px.is_cuda:
+        return deposit_rows_cuda(*args, MESH_1D, PDF_AREA.numpy())
+    return deposit_rows_plain(*args)
 
 
 def deposit_and_merge(
@@ -323,6 +429,8 @@ def deposit_and_merge(
     """
     if lookup not in LOOKUPS:
         raise ValueError(f"lookup={lookup!r}: expected one of {LOOKUPS}")
+    if merge not in MERGES:
+        raise ValueError(f"merge={merge!r}: expected one of {MERGES}")
     t_steps, b = electrons.shape
     k_tracks = tracks_per_event
     e = n_events
@@ -374,45 +482,22 @@ def deposit_and_merge(
     pne = ev_flat(electrons)[gsrc].to(f32)  # gain is applied after the merge
     prank = ((gsrc // t_steps) % k_tracks).to(i32)
 
-    # --- diffusion mesh ------------------------------------------------- #
-    # sigma_t = sqrt(2 D dv t / E), t in (float) TBs (transporter.py:301)
-    sigma = torch.sqrt(2.0 * diffusion * drift_velocity * ptbf / efield)
-    has_diff = sigma > 0.0
-    sigma_safe = torch.where(has_diff, sigma, torch.ones_like(sigma))
-    mesh = torch.from_numpy(MESH_1D).to(dev)
-    x10 = px[:, None] + sigma_safe[:, None] * mesh[None, :]
-    y10 = py[:, None] + sigma_safe[:, None] * mesh[None, :]
-    # sigma == 0: all electrons on the point itself, through pixel (0, 0)
-    x10 = torch.where(has_diff[:, None], x10, px[:, None])
-    y10 = torch.where(has_diff[:, None], y10, py[:, None])
-
-    q_pix = pne[:, None, None] * _pdf_area().to(dev)
-    q_point = torch.zeros((MESH_STEPS, MESH_STEPS), dtype=f32, device=dev)
-    q_point[0, 0] = 1.0
-    q_pix = torch.where(has_diff[:, None, None], q_pix,
-                        pne[:, None, None] * q_point)
-
-    # pixel cells; invalid pixels (off the plane, no point) are aliased
-    # onto the table's sentinel padding, as deposition.py:484-492
-    ix = torch.floor(x10 * 1000.0 - grid_lo_mm).to(i32)
-    iy = torch.floor(y10 * 1000.0 - grid_lo_mm).to(i32)
-    bad_x = (ix < 0) | (ix >= grid_n_mm) | ~taken[:, None]
-    bad_y = (iy < 0) | (iy >= grid_n_mm)
-    ix = torch.where(bad_x, torch.full_like(ix, PAD_TABLE_NX - 1), ix)
-    iy = torch.where(bad_y, torch.full_like(iy, PAD_TABLE_NY - 1), iy)
+    # --- diffusion mesh, pad lookup, pixel charges ---------------------- #
     tbr = (ptbi << rank_bits) | prank
-    lookup_fn = (packed_key_lookup if lookup == "two_stage"
-                 else packed_key_lookup_rows)
-    packed3 = lookup_fn(ix.contiguous(), iy.contiguous(), tbr.contiguous(),
-                        pad_table, rank_bits, KEY_SENTINEL)
-    w = pb * MESH_STEPS * MESH_STEPS
-    packed = packed3.reshape(e, w)
-    qq_in = torch.where(packed3 != KEY_SENTINEL, q_pix,
-                        torch.zeros_like(q_pix)).reshape(e, w)
-
-    # --- per-event merge to unique (pad, tb) ---------------------------- #
-    key2, sums, valid2, n_uniq = _merge_runs(packed, qq_in, u_cap, rank_bits,
-                                             merge)
+    phys = (grid_lo_mm, grid_n_mm, diffusion, efield, drift_velocity)
+    if merge == "sorts" and lookup == "two_stage":
+        # one kernel writes the int64 rows the first merge sort takes
+        rows = deposit_rows(*(a.reshape(e, pb) for a in (
+            px, py, ptbf, pne, tbr, taken)), pad_table, *phys, rank_bits)
+        key2, sums, valid2, n_uniq = _merge_rows(rows, u_cap, rank_bits)
+    else:
+        lookup_fn = (packed_key_lookup if lookup == "two_stage"
+                     else packed_key_lookup_rows)
+        keys, q = pixel_keys_charges(lookup_fn, px, py, ptbf, pne, tbr, taken,
+                                     pad_table, *phys, rank_bits)
+        w = pb * MESH_STEPS * MESH_STEPS
+        key2, sums, valid2, n_uniq = _merge_runs(
+            keys.reshape(e, w), q.reshape(e, w), u_cap, rank_bits, merge)
     uniq_max = n_uniq.max()
     uniq_overflow = torch.clamp(n_uniq - u_cap, min=0).sum(dtype=i32)
     counts = torch.clamp(n_uniq, max=u_cap)

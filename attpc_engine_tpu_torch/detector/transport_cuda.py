@@ -6,7 +6,9 @@ Pallas kernel ``attpc_engine_tpu/detector/transport_pallas.py`` ``_kernel``
 on the card is latency: one dependent chain of four right-hand sides per
 step for each of only 768 tracks at the flagship batch. The kernel keeps a
 track's state in registers for the whole window and the dE/dx table in
-shared memory; see the source for the rest.
+shared memory, and runs each step through branch-free copies of the
+compiler's division and square-root fast paths, recomputing the rare step
+whose operands leave their exact range; see the source for the rest.
 
 ``rk4_window`` takes the plain PyTorch version
 (``transport.rk4_window_plain``) for CPU tensors and launches the kernel
@@ -21,7 +23,8 @@ import torch
 from .. import kernels
 from .transport import Rk4Constants, rk4_window_plain
 
-__all__ = ["rk4_window", "rk4_window_cuda", "launches", "MAX_TABLE_BYTES"]
+__all__ = ["rk4_window", "rk4_window_cuda", "launch_rk4", "launches",
+           "MAX_TABLE_BYTES"]
 
 # dynamic shared memory one block may use on Hopper
 MAX_TABLE_BYTES = 227 * 1024
@@ -29,10 +32,12 @@ MAX_TABLE_BYTES = 227 * 1024
 launches = 0
 
 
-def rk4_window_cuda(pos, gv, alive, s_idx, mass, q_m, dedx, out_pos, out_dke,
-                    out_alive, k: Rk4Constants) -> None:
-    """Launch K1 for one window (arguments as ``rk4_window_plain``)."""
-    global launches
+def launch_rk4(lib, pos, gv, alive, s_idx, mass, q_m, dedx, out_pos,
+               out_dke, out_alive, k: Rk4Constants,
+               force_ieee: bool = False) -> None:
+    """Check the arguments and launch ``attpc_rk4_window`` of ``lib`` for
+    one window (arguments as ``rk4_window_plain``; ``force_ieee`` as
+    ``rk4_window_cuda``)."""
     b = pos.shape[0]
     t = out_dke.shape[0]
     n_species, n_tab = dedx.shape
@@ -55,14 +60,26 @@ def rk4_window_cuda(pos, gv, alive, s_idx, mass, q_m, dedx, out_pos, out_dke,
     ):
         kernels.require(x, name, dtype, shape)
     p = kernels.ptr
-    err = kernels.library().attpc_rk4_window(
+    err = lib.attpc_rk4_window(
         p(pos), p(gv), p(alive), p(s_idx), p(mass), p(q_m), p(dedx),
         n_species, n_tab, p(out_pos), p(out_dke), p(out_alive), b, t,
         k.dt, k.half_dt, k.dt6, k.dens, k.c, k.log_lo, k.dlog, k.clip_hi,
         k.ke_lim, k.z_bound, k.rho2_bound, k.tiny, k.b_neg, k.e_neg,
-        k.mev2kg, kernels.stream(pos),
+        k.mev2kg, int(force_ieee), kernels.stream(pos),
     )
     kernels.check(err, "rk4_window")
+
+
+def rk4_window_cuda(pos, gv, alive, s_idx, mass, q_m, dedx, out_pos, out_dke,
+                    out_alive, k: Rk4Constants,
+                    force_ieee: bool = False) -> None:
+    """Launch K1 for one window (arguments as ``rk4_window_plain``). With
+    ``force_ieee`` every step goes through the compiler's IEEE operators
+    instead of their branch-free fast paths: the same bits, slower; the
+    reference the kernel is held to on the card."""
+    global launches
+    launch_rk4(kernels.library(), pos, gv, alive, s_idx, mass, q_m, dedx,
+               out_pos, out_dke, out_alive, k, force_ieee)
     launches += 1
 
 

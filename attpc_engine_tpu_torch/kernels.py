@@ -12,8 +12,10 @@ built when a module is imported.
 The flags leave out ``--use_fast_math`` (IEEE ``logf``, ``sqrtf`` and
 division) and add ``-fmad=false``: the transport kernel must round like its
 plain PyTorch version, whose multiplies and adds are separate kernels, and
-the merge tail adds only, in the order of its plain version. The other
-kernels do integer work only, so the flag does not touch them.
+the merge tail adds only, in the order of its plain version. The
+deposit-rows kernel rounds each of its few f32 operations explicitly
+(``__fmul_rn``, ``__fadd_rn``), so it would not contract without the flag
+either. The other kernels do integer work only.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("transport.cu", "deposit.cu", "sort_cluster.cu", "sort_rows.cu",
-           "merge_fused.cu")
+SOURCES = ("transport.cu", "deposit.cu", "deposit_rows.cu", "sort_cluster.cu",
+           "sort_rows.cu", "merge_fused.cu")
 LIBRARY = "libattpc_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -58,7 +60,7 @@ def nvcc() -> str:
     return found
 
 
-def _run(cmds: list[list[str]]) -> None:
+def run_parallel(cmds: list[list[str]]) -> None:
     """Run the commands in parallel; raise with the output of the first
     that fails. Every process is waited for."""
     procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
@@ -88,10 +90,10 @@ def build() -> Path:
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [str(Path(tmp) / f"{Path(s).stem}.o") for s in SOURCES]
-        _run([[nvcc(), *NVCC_FLAGS, "-c", str(CSRC / s), "-o", o]
+        run_parallel([[nvcc(), *NVCC_FLAGS, "-c", str(CSRC / s), "-o", o]
               for s, o in zip(SOURCES, objs)])
         lib = str(Path(tmp) / LIBRARY)
-        _run([[nvcc(), *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
+        run_parallel([[nvcc(), *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
         os.replace(lib, out)
     _state["build_seconds"] = time.perf_counter() - t0
     _state["path"] = out
@@ -103,24 +105,35 @@ def build_seconds() -> float | None:
     return _state["build_seconds"]
 
 
+def declare_rk4(lib: ctypes.CDLL) -> None:
+    """Argument and result types of ``attpc_rk4_window`` in ``lib`` (this
+    library, or a build of ``transport.cu`` alone)."""
+    vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.attpc_rk4_window.argtypes = (
+        [vp] * 7 + [i32, i32] + [vp] * 3 + [i32, i32] + [f32] * 15
+        + [i32, vp]
+    )
+    lib.attpc_rk4_window.restype = ctypes.c_int
+
+
 def _declare(lib: ctypes.CDLL) -> None:
     vp, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                          ctypes.c_float)
-    lib.attpc_rk4_window.argtypes = (
-        [vp] * 7 + [i32, i32] + [vp] * 3 + [i32, i32] + [f32] * 15 + [vp]
-    )
+    declare_rk4(lib)
     lib.attpc_packed_key_lookup.argtypes = [vp] * 5 + [i64, i32, i32, vp]
     lib.attpc_packed_key_lookup_rows.argtypes = (
         [vp] * 5 + [i64, i32, i32, vp])
     lib.attpc_pad_lookup.argtypes = [vp] * 4 + [i64, vp]
+    lib.attpc_deposit_rows.argtypes = (
+        [vp] * 10 + [i64, f32, f32, f32, i32, i32, vp])
     lib.attpc_sort_rows_i64.argtypes = [vp, vp, vp, i32, i64, i64, vp]
     lib.attpc_sort_rows_cluster.argtypes = [vp, vp, i32, i64, i32, i32, vp]
     lib.attpc_sort_rows_cluster_occupancy.argtypes = [
         i32, i32, ctypes.POINTER(i32)]
     lib.attpc_merge_tail.argtypes = [vp] * 4 + [i32, i64, i32, i32, vp]
-    for fn in (lib.attpc_rk4_window, lib.attpc_packed_key_lookup,
+    for fn in (lib.attpc_packed_key_lookup,
                lib.attpc_packed_key_lookup_rows, lib.attpc_pad_lookup,
-               lib.attpc_sort_rows_i64, lib.attpc_sort_rows_cluster,
+               lib.attpc_deposit_rows, lib.attpc_sort_rows_i64, lib.attpc_sort_rows_cluster,
                lib.attpc_sort_rows_cluster_occupancy, lib.attpc_merge_tail):
         fn.restype = ctypes.c_int
     lib.attpc_error_string.argtypes = [i32]

@@ -13,12 +13,17 @@ Phases (each raises on failure, and nothing is caught):
 3. Each kernel against its plain PyTorch version on the card, at the shapes
    of the flagship batch (384 events): K1 transport (768 tracks, one
    500-step window; alive flags exact, positions within 1e-6 m, |dKE|
-   within 1e-4 MeV), K2 pad lookup (393,216 points; bit-exact), K3 row
-   sort ([384, 102400] and [384, 12288] int64; bit-exact), K6 one-stage
-   lookup (393,216 points; bit-exact against its plain version and K2), K7
-   pad ids (393,216 points; bit-exact), K5 fused merge ([384, 102400], cap
-   12,288; key2 and n_uniq exact, c2 bit-exact) on the flagship's own merge
-   keys (rank_bits 1, taken from a fused batch) and on synthetic keys
+   within 1e-4 MeV, and bit for bit its own run with every step through
+   the compiler's IEEE operators, ``force_ieee``), the deposit-rows kernel
+   (the default step's mesh, lookup and charges in one kernel; bit-exact
+   against its plain version, on the flagship's own points taken from a
+   default batch and on synthetic points with every edge
+   case), K2 pad lookup (393,216 points; bit-exact), K3 row sort
+   ([384, 102400] and [384, 12288] int64; bit-exact), K6 one-stage lookup
+   (393,216 points; bit-exact against its plain version and K2), K7 pad ids
+   (393,216 points; bit-exact), K5 fused merge ([384, 102400], cap 12,288;
+   key2 and n_uniq exact, c2 bit-exact) on the flagship's own merge keys
+   (rank_bits 1, taken from a fused batch) and on synthetic keys
    (rank_bits 2). K3 is held on each of its shapes and routes: synthetic
    merge rows and the flagship's own merge rows (taken from a default
    batch) at [384, 102400] and convert rows at [384, 12288] on the cluster
@@ -27,30 +32,40 @@ Phases (each raises on failure, and nothing is caught):
    route ``sort_cuda.route`` gives it and the cluster route must allocate
    nothing but its output. Times by CUDA events, beside each kernel's
    bound (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
-   whichever is larger) and, where one PyTorch call computes the same
-   function, that call's time.
+   whichever is larger; for K1 also its latency bound: the critical path
+   of one step in the SASS of this checkout's ``transport.cu``, at
+   latencies measured on the card in this run
+   (``tools/k1_critical_path.py``), times the steps of the longest-lived
+   track at the highest SM clock) and, where one PyTorch call computes the
+   same function, that call's time; for the deposit-rows kernel also the
+   time of the rows built as the default step built them before it
+   (``deposit_rows_plain`` with K2 as its lookup). How ATen's CUDA division
+   by a CPU scalar rounds is printed beside them.
 4. The main path: the flagship configuration (12C(d,p) at 120 MeV through
    D2 at 300 Torr, the default AT-TPC detector) at the default engine
    parameters with 384 events per batch, four batches of the committed
    kinematics (``attpc_engine_tpu_torch/data/smoke_kinematics.npz``)
    through ``DetectorSimulator.simulate_batch`` and the host Spyral
    assembly. h5py is not required on the card, so the HDF5 writers are not
-   driven here. K1, K2 and K3 must have been launched by this phase, K3
-   on its cluster route only; the rows must be well formed; eight events
-   run on the card must agree with the same eight run on the CPU through
-   the plain versions.
+   driven here. K1, the deposit-rows kernel and K3 must have been launched
+   by this phase, K2 not, K3 on its cluster route only; the rows must be
+   well formed; eight events run on the card must agree with the same
+   eight run on the CPU through the plain versions.
 4b. The fused configuration, ``EngineParams(merge="fused",
    lookup="one_stage")``, over the same four batches at full width: K1, K3
-   (cluster route only), K5 and K6 must have been launched and K2 not; its
-   first batch's merged cloud must equal the default configuration's in
-   every integer, with charges within rtol 1e-5 and a one-electron floor.
+   (cluster route only), K5 and K6 must have been launched and K2 and the
+   deposit-rows kernel not; its first batch's merged cloud must equal the
+   default configuration's in every integer, with charges within rtol 1e-5
+   and a one-electron floor.
 4c. The pad-id entry point ``deposit_cuda.pad_lookup`` at 393,216 points:
    K7 must have been launched.
+4d. The key entry point ``deposit_cuda.packed_key_lookup`` at 393,216
+   points: K2 must have been launched.
 5. One JSON line of kernel results, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before each of 4, 4b and 4c and read just
-after it. Exits non-zero, with no result line, where there is no CUDA
+Launch counts are set to 0 just before each of 4, 4b, 4c and 4d and read
+just after it. Exits non-zero, with no result line, where there is no CUDA
 device or no repository beside the script.
 """
 
@@ -71,7 +86,8 @@ F32_FLOPS = 67e12  # f32 outside the tensor cores, the same source
 # f32 operations of one RK4 step of one live track in csrc/transport.cu,
 # counting each logf, sqrtf and division as one: four right-hand sides of
 # ~48 and ~78 for the stage inputs, the update, the kinetic energy and the
-# stop tests
+# stop tests. They give the contract's throughput bound, which K1 is far
+# from: its bound is latency (check_transport).
 K1_FLOPS_PER_STEP = 270
 
 # name: (wrapper module, launch counter, source, TPU kernel, path)
@@ -80,9 +96,14 @@ KERNELS = {
                   "attpc_engine_tpu_torch/csrc/transport.cu",
                   "attpc_engine_tpu/detector/transport_pallas.py:45",
                   "default"),
+    "deposit_rows": ("deposit_cuda", "launches_deposit_rows",
+                     "attpc_engine_tpu_torch/csrc/deposit_rows.cu",
+                     "attpc_engine_tpu/detector/deposit_pallas.py:210",
+                     "default"),
     "deposit": ("deposit_cuda", "launches",
                 "attpc_engine_tpu_torch/csrc/deposit.cu",
-                "attpc_engine_tpu/detector/deposit_pallas.py:210", "default"),
+                "attpc_engine_tpu/detector/deposit_pallas.py:210",
+                "packed_key_lookup"),
     "sort_rows": ("sort_cuda", "launches",
                   "attpc_engine_tpu_torch/csrc/sort_cluster.cu",
                   "attpc_engine_tpu/detector/sort_pallas.py:366", "default"),
@@ -195,10 +216,12 @@ def flagship_simulator(device, **engine):
     return sim, data["vertices"], data["momenta"]
 
 
-def check_transport(sim, vertices, momenta, card: str) -> dict:
-    """K1 against rk4_window_plain: 768 tracks, one 500-step window."""
+def transport_inputs(sim, vertices, momenta) -> dict:
+    """K1's inputs for one window of the flagship batch: 768 tracks, the
+    initial state, the per-track constants and a ``run(fn)`` that fills
+    fresh [T, B] outputs from a copy of the state with ``fn`` (the kernel's
+    wrapper or the plain version)."""
     from attpc_engine_tpu_torch.detector import transport as T
-    from attpc_engine_tpu_torch.detector import transport_cuda
 
     e, k = len(vertices), sim.k_tracks
     steps = sim.engine.chunk_steps
@@ -225,6 +248,42 @@ def check_transport(sim, vertices, momenta, card: str) -> dict:
         fn(pos, gv, alive, s_idx, mass, q_m, sim.species.dedx, *out, kc)
         return out
 
+    return {"run": run, "steps": steps, "b": b, "alive0": alive0,
+            "args": (s_idx, mass, q_m, sim.species.dedx, kc)}
+
+
+def steps_run(alive0: torch.Tensor, out_alive: torch.Tensor) -> torch.Tensor:
+    """Steps each track computed in the window: step t runs where the
+    track was alive before it (alive0 for t = 0, out_alive[t - 1] after)."""
+    return alive0.int() + out_alive[:-1].int().sum(dim=0)
+
+
+def sm_clock_mhz() -> tuple[int, int]:
+    """(current, maximum) SM clock in MHz, as nvidia-smi reports them."""
+    line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    now, top = (int(v) for v in line.split(","))
+    return now, top
+
+
+def check_transport(sim, vertices, momenta, card: str) -> dict:
+    """K1 against rk4_window_plain: 768 tracks, one 500-step window. Its
+    bound beside the contract's bytes-or-operations one is the latency
+    bound: the critical path of one live step, taken here from the SASS of
+    this checkout's transport.cu at latencies the probe measures on this
+    card (tools/k1_critical_path.py), times the steps the longest-lived
+    track runs, at the card's highest SM clock."""
+    sys.path.insert(0, str(REPO / "tools"))
+    import k1_critical_path
+
+    from attpc_engine_tpu_torch.detector import transport as T
+    from attpc_engine_tpu_torch.detector import transport_cuda
+
+    ti = transport_inputs(sim, vertices, momenta)
+    run, steps, b = ti["run"], ti["steps"], ti["b"]
     got = run(transport_cuda.rk4_window_cuda)
     ref = run(T.rk4_window_plain)
     torch.cuda.synchronize()
@@ -236,7 +295,15 @@ def check_transport(sim, vertices, momenta, card: str) -> dict:
     ddke = float((got[1] - ref[1]).abs()[live].max())
     if not (dpos < 1e-6 and ddke < 1e-4):
         raise AssertionError(f"K1: |dpos| {dpos} m, |ddke| {ddke} MeV")
+
+    def ieee(*args):
+        transport_cuda.rk4_window_cuda(*args, force_ieee=True)
+
+    if not all(torch.equal(a, c) for a, c in zip(got, run(ieee))):
+        raise AssertionError("K1 differs from its run through the compiler's"
+                             " IEEE operators")
     ms = cuda_ms(lambda: run(transport_cuda.rk4_window_cuda), 10)
+    ieee_ms = cuda_ms(lambda: run(ieee), 10)
     plain_ms = cuda_ms(lambda: run(T.rk4_window_plain), 1)
     # outputs [T, B] positions, |dKE| and flags, the carried state read and
     # written, the per-track constants and the dE/dx table read
@@ -244,12 +311,26 @@ def check_transport(sim, vertices, momenta, card: str) -> dict:
                + b * (4 + 4 + 4) + sim.species.dedx.numel() * 4)
     live_steps = int(live.sum())
     bnd = bound(n_bytes, K1_FLOPS_PER_STEP * live_steps)
+    longest = int(steps_run(ti["alive0"], live).max())
+    clock_now, clock_max = sm_clock_mhz()
+    path = k1_critical_path.fast_step()
+    step_cycles = path["cycles"]
+    latency_ms = step_cycles * longest / (clock_max * 1e3)
     print(f"K1 transport: B={b} T={steps}: alive exact, max |dpos| {dpos:.3g} m,"
-          f" max |ddke| {ddke:.3g} MeV; kernel {ms:.3f} ms, plain {plain_ms:.1f} ms,"
-          f" bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}; "
-          f"{live_steps} live track-steps) [{card}]")
+          f" max |ddke| {ddke:.3g} MeV, bit-identical to force_ieee; kernel "
+          f"{ms:.3f} ms, force_ieee {ieee_ms:.3f} ms, plain {plain_ms:.1f} ms;"
+          f" latency bound {latency_ms:.4f} ms ({step_cycles:.1f} cycles a "
+          f"step, a critical path of {len(path['chain'])} of the step's "
+          f"{path['instructions']} instructions, x {longest} steps of the longest-lived track at "
+          f"{clock_max} MHz; SM clock now {clock_now} MHz), share "
+          f"{latency_ms / ms:.3f}; throughput bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']}; {live_steps} live track-steps) [{card}]")
     return {"max_abs_err": dpos, "ms": ms, "plain_ms": plain_ms, **bnd,
-            "library_ms": None}
+            "library_ms": None, "max_abs_err_dke": ddke,
+            "force_ieee_ms": ieee_ms,
+            "latency_bound_ms": latency_ms, "step_cycles": step_cycles,
+            "longest_track_steps": longest, "sm_clock_max_mhz": clock_max,
+            "sm_clock_mhz": clock_now}
 
 
 def lookup_inputs(sim):
@@ -274,6 +355,107 @@ def lookup_bytes(p: int, with_tbr: bool) -> int:
     int32 output written."""
     return p * 10 * 4 * 2 + (p * 4 if with_tbr else 0) + 560 * 640 * 4 + (
         p * 100 * 4)
+
+
+def rows_bytes(e: int, pb: int) -> int:
+    """The deposit rows' inputs read once (px, py, ptbf, pne, tbr: 4 B,
+    taken: 1 B a point), the int32 table, the [E, pb * 100] int64 rows
+    written."""
+    return e * pb * (5 * 4 + 1) + 560 * 640 * 4 + e * pb * 100 * 8
+
+
+def flagship_rows_args(sim, vertices, momenta) -> tuple:
+    """The arguments the first default batch hands the deposit-rows
+    kernel: the flagship's own compacted points."""
+    from attpc_engine_tpu_torch.detector import deposition
+
+    seen = []
+    real = deposition.deposit_rows
+
+    def spy(*args):
+        if not seen:
+            seen.append(tuple(a.clone() if torch.is_tensor(a) else a
+                              for a in args))
+        return real(*args)
+
+    deposition.deposit_rows = spy
+    try:
+        sim.simulate_batch(vertices[:BATCH], momenta[:BATCH], seed=SEED,
+                           assemble=False)
+    finally:
+        deposition.deposit_rows = real
+    return seen[0]
+
+
+def synthetic_rows_args(sim, like: tuple) -> tuple:
+    """Points [384, 1024] with every edge case of the deposit rows mixed
+    in: sigma == 0 (tb_f 0), empty slots with junk values (zero or negative
+    electrons among them), points beyond the pad plane, tb_f in (-1, 0);
+    the other arguments as in ``like``."""
+    rng = np.random.default_rng(SEED)
+    shape = (BATCH, sim.engine.point_budget)
+    px = rng.normal(0.0, 0.12, shape)
+    py = rng.normal(0.02, 0.12, shape)
+    ptbf = rng.uniform(0.0, 511.9, shape)
+    pne = rng.integers(1, 4000, shape).astype(np.float64)
+    taken = rng.random(shape) < 0.85
+    case = rng.integers(0, 4, shape)
+    ptbf[case == 0] = 0.0
+    pne[~taken] = rng.integers(-50, 2, int((~taken).sum()))
+    px[case == 2] = rng.uniform(0.27, 0.4, int((case == 2).sum()))
+    ptbf[case == 3] = rng.uniform(-0.999, -1e-6, int((case == 3).sum()))
+    ptbf = ptbf.astype(np.float32)
+    tbr = (ptbf.astype(np.int32) << 1) | rng.integers(0, 2, shape).astype(
+        np.int32)
+    pts = [px.astype(np.float32), py.astype(np.float32), ptbf,
+           pne.astype(np.float32), tbr, taken]
+    return (*(torch.from_numpy(a).cuda() for a in pts), *like[6:])
+
+
+def aten_scalar_division(efield: float) -> dict:
+    """How ATen's CUDA ``x / efield`` (a CPU scalar) rounds, on 2^20 f32
+    values: against ``x * f32(1 / f32(efield))`` and against IEEE
+    division (a double quotient of f32 operands rounded to f32)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.rand(1 << 20, generator=g, device="cuda") * 512.0
+    got = x / efield
+    inv = float(np.float32(1.0) / np.float32(efield))
+    ieee = (x.double() / float(np.float32(efield))).float()
+    return {"n": x.numel(),
+            "equal_to_reciprocal_product": int((got == x * inv).sum()),
+            "equal_to_ieee_division": int((got == ieee).sum())}
+
+
+def check_deposit_rows(args: tuple, label: str, card: str) -> dict:
+    """The deposit-rows kernel against deposit_rows_plain on the card, bit
+    for bit; timed beside the plain version and the rows as the default
+    step built them before the kernel (the plain version with K2 as its
+    lookup)."""
+    from attpc_engine_tpu_torch.detector import deposit_cuda, deposition
+
+    got = deposition.deposit_rows(*args)
+    ref = deposition.deposit_rows_plain(*args)
+    n_bad = int((got != ref).sum())
+    if n_bad:
+        raise AssertionError(f"deposit rows, {label}: {n_bad} of "
+                             f"{ref.numel()} rows differ from the plain "
+                             f"version")
+    keys = got >> 32
+    n_key = int((keys != 2**31 - 1).sum())
+    del got, ref, keys
+    ms = cuda_ms(lambda: deposition.deposit_rows(*args), 20)
+    plain_ms = cuda_ms(lambda: deposition.deposit_rows_plain(*args), 3)
+    before_ms = cuda_ms(lambda: deposition.deposit_rows_plain(
+        *args, lookup=deposit_cuda.packed_key_lookup_cuda), 5)
+    e, pb = args[0].shape
+    bnd = bound(rows_bytes(e, pb))
+    print(f"deposit rows, {label}: [{e}, {pb * 100}] int64, {n_key} real "
+          f"keys: bit-exact against the plain version; kernel {ms:.3f} ms, "
+          f"as before the kernel (PyTorch passes around K2) {before_ms:.3f} "
+          f"ms, plain {plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
+          f"[{card}]")
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": None, "before_ms": before_ms}
 
 
 def check_deposit(sim, inputs, card: str) -> dict:
@@ -605,19 +787,17 @@ def compare_clouds(default: dict, fused: dict, gain: float) -> None:
         raise AssertionError("fused vs default: charges out of bound")
 
 
-def pad_lookup_path(inputs, table, card: str) -> dict:
-    """The pad-id entry point as a user calls it, counts set to 0 just
-    before and read just after."""
-    from attpc_engine_tpu_torch.detector import deposit_cuda
-
-    ix, iy, _ = inputs
+def entry_point_path(name: str, call, card: str) -> dict:
+    """A lookup entry point as a user calls it (``call()`` returns its
+    [P, 10, 10] output), counts set to 0 just before and read just after;
+    kernel ``name`` must have been launched."""
     reset_counts()
-    pads = deposit_cuda.pad_lookup(ix, iy, table)
+    out = call()
     torch.cuda.synchronize()
     launches = read_counts()
-    if launches["pad_lookup"] == 0 or pads.shape != (ix.shape[0], 10, 10):
-        raise AssertionError(f"pad_lookup entry point: {launches}")
-    print(f"pad_lookup entry point: {tuple(pads.shape)} pad ids; launches "
+    if launches[name] == 0 or tuple(out.shape[1:]) != (10, 10):
+        raise AssertionError(f"{name} entry point: {launches}")
+    print(f"{name} entry point: {tuple(out.shape)} {out.dtype}; launches "
           f"{launches} [{card}]")
     return {"launches": launches, "routes": read_routes()}
 
@@ -654,6 +834,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     from attpc_engine_tpu_torch import kernels
+    from attpc_engine_tpu_torch.detector import deposit_cuda
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -666,6 +847,17 @@ def main() -> int:
     sim_fused, _, _ = flagship_simulator("cuda", **fused_cfg)
     inputs = lookup_inputs(sim)
     w, cap = sim.engine.point_budget * 100, sim.engine.uniq_budget
+    division = aten_scalar_division(float(sim.config.det_params.efield))
+    print(f"ATen CUDA x / efield on {division['n']} f32 values: equal to x *"
+          f" f32(1 / efield) in {division['equal_to_reciprocal_product']}, "
+          f"to IEEE division in {division['equal_to_ieee_division']}")
+    rows_args = flagship_rows_args(sim, vertices, momenta)
+    deposit_rows = {
+        "flagship": check_deposit_rows(rows_args, "flagship points", card),
+        "synthetic": check_deposit_rows(synthetic_rows_args(sim, rows_args),
+                                        "synthetic edge-case points", card),
+    }
+    del rows_args
     sorts = {
         "merge": check_sort(sort_inputs(w, False), "synthetic merge rows",
                             ("cluster", 8), card),
@@ -682,6 +874,7 @@ def main() -> int:
     res = {
         "transport": check_transport(sim, vertices[:BATCH], momenta[:BATCH],
                                      card),
+        "deposit_rows": deposit_rows["flagship"],
         "deposit": check_deposit(sim, inputs, card),
         "sort_rows": sorts["merge"],
         "packed_key_lookup_rows": check_rows_lookup(sim, inputs, card),
@@ -693,16 +886,24 @@ def main() -> int:
     synthetic = check_merge_fused(synthetic_merge_inputs(w, cap, 2),
                                   "synthetic keys", card)
 
+    ix, iy, tbr = inputs
+    table = sim.pad_table
     paths = {
         "default": main_path(sim, vertices, momenta, "default",
-                             ("transport", "deposit", "sort_rows"),
-                             ("merge_fused", "packed_key_lookup_rows",
-                              "pad_lookup"), card),
+                             ("transport", "deposit_rows", "sort_rows"),
+                             ("deposit", "merge_fused",
+                              "packed_key_lookup_rows", "pad_lookup"), card),
         "fused": main_path(sim_fused, vertices, momenta, "fused",
                            ("transport", "sort_rows", "merge_fused",
                             "packed_key_lookup_rows"),
-                           ("deposit", "pad_lookup"), card),
-        "pad_lookup": pad_lookup_path(inputs, sim.pad_table, card),
+                           ("deposit", "deposit_rows", "pad_lookup"), card),
+        "pad_lookup": entry_point_path(
+            "pad_lookup",
+            lambda: deposit_cuda.pad_lookup(ix, iy, table), card),
+        "packed_key_lookup": entry_point_path(
+            "deposit",
+            lambda: deposit_cuda.packed_key_lookup(ix, iy, tbr, table, 1,
+                                                   2**31 - 1), card),
     }
     compare_clouds(paths["default"]["first"], paths["fused"]["first"],
                    float(sim.config.det_params.mpgd_gain))
@@ -726,6 +927,12 @@ def main() -> int:
                 for key, v in sorts.items()}
             row["launches_by_route"] = {p: paths[p]["routes"][name]
                                         for p in paths}
+        if name == "deposit_rows":
+            row.update(synthetic_ms=deposit_rows["synthetic"]["ms"],
+                       synthetic_plain_ms=deposit_rows["synthetic"]["plain_ms"],
+                       synthetic_before_ms=deposit_rows["synthetic"][
+                           "before_ms"],
+                       aten_division=division)
         if name == "merge_fused":
             row.update(synthetic_ms=synthetic["ms"],
                        synthetic_plain_ms=synthetic["plain_ms"],

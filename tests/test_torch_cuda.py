@@ -7,8 +7,9 @@ the JAX package (the card's Python needs neither jax nor h5py for it):
     python -m pytest -q tests/test_torch_cuda.py
 
 Bounds: K1 alive flags exact, positions within 1e-6 m, |dKE| within
-1e-4 MeV (tests/test_transport_pallas.py); K2, K3 (both routes), K6 and K7
-bit-exact; K5 key2 and n_uniq exact and c2 bit-exact. A wrapper given a
+1e-4 MeV (tests/test_transport_pallas.py); K2, K3 (both routes), K6, K7
+and the deposit-rows kernel bit-exact; K5 key2 and n_uniq exact and c2
+bit-exact. A wrapper given a
 CUDA tensor it cannot take raises: nothing falls back.
 """
 
@@ -29,6 +30,7 @@ from attpc_engine_tpu_torch.detector import (
 )
 from attpc_engine_tpu_torch.detector import (
     deposit_cuda,
+    deposition,
     merge_cuda,
     sort_cuda,
     transport_cuda,
@@ -91,6 +93,37 @@ def test_transport_kernel_matches_plain(cuda_device):
     assert float((pr - pg).abs()[ar].max()) < 1e-6
     assert float((dr - dg).abs()[ar].max()) < 1e-4
     assert torch.equal(cr[2], cg[2])  # the carried alive flags
+
+
+def test_transport_fast_paths_equal_ieee_operators(cuda_device):
+    """K1's branch-free division and square-root fast paths against the
+    same window with every step through the compiler's IEEE operators
+    (force_ieee): positions, |dKE|, flags and the carry bit for bit."""
+    sim, vert, mom = _simulator(cuda_device)
+    e, k, steps = 64, sim.k_tracks, 500
+    p3 = mom[:e, sim.sim_indices, :3]
+    gv0 = torch.from_numpy((p3 / sim.track_masses[None, :, None])
+                           .astype(np.float32).reshape(-1, 3)).cuda()
+    pos0 = torch.from_numpy(np.repeat(vert[:e].astype(np.float32), k,
+                                      axis=0)).cuda()
+    s_idx = torch.arange(k, dtype=torch.int32).repeat(e).cuda()
+    mass, q_m = T.track_constants(sim.species, s_idx)
+    dp = sim.config.det_params
+    kc = T.Rk4Constants.make(sim.species, float(dp.gas_target.density),
+                             float(dp.bfield), float(dp.efield), 1e-10)
+    outs = []
+    for force_ieee in (False, True):
+        state = (pos0.clone(), gv0.clone(), T.initial_alive(pos0, gv0, mass))
+        out = (torch.zeros((steps, e * k, 3), device="cuda"),
+               torch.zeros((steps, e * k), device="cuda"),
+               torch.zeros((steps, e * k), dtype=torch.bool, device="cuda"))
+        transport_cuda.rk4_window_cuda(*state, s_idx, mass, q_m,
+                                       sim.species.dedx, *out, kc,
+                                       force_ieee=force_ieee)
+        outs.append(out + state)
+    assert outs[0][2].any()
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 def _sort_rows(w: int) -> torch.Tensor:
@@ -182,6 +215,61 @@ def test_deposit_kernel_matches_plain(cuda_device):
     with pytest.raises(ValueError):  # wrong dtype: raise, no fallback
         deposit_cuda.packed_key_lookup(args[0].long(), *args[1:],
                                        sim.pad_table, 1, SENT)
+
+
+def _rows_points(e: int, pb: int, seed: int):
+    """Compacted points [E, pb] with every edge case of the deposit rows
+    mixed in: sigma == 0 (tb_f 0), empty slots with junk values, points off
+    the pad plane, tb_f in (-1, 0)."""
+    rng = np.random.default_rng(seed)
+    shape = (e, pb)
+    px = rng.normal(0.0, 0.12, shape)
+    py = rng.normal(0.02, 0.12, shape)
+    ptbf = rng.uniform(0.0, 511.9, shape)
+    pne = rng.integers(1, 4000, shape).astype(np.float64)
+    taken = rng.random(shape) < 0.85
+    case = rng.integers(0, 4, shape)
+    ptbf[case == 0] = 0.0
+    pne[~taken] = rng.integers(-50, 2, (~taken).sum())
+    px[case == 2] = rng.uniform(0.27, 0.4, (case == 2).sum())
+    ptbf[case == 3] = rng.uniform(-0.999, -1e-6, (case == 3).sum())
+    ptbf = ptbf.astype(np.float32)
+    tbr = (ptbf.astype(np.int32) << 1) | rng.integers(0, 2, shape).astype(
+        np.int32)
+    return [px.astype(np.float32), py.astype(np.float32), ptbf,
+            pne.astype(np.float32), tbr, taken]
+
+
+def test_deposit_rows_kernel_matches_plain(cuda_device):
+    """The deposit-rows kernel against its plain version on the card, bit
+    for bit, with every edge case and P not a multiple of the block."""
+    sim, _, _ = _simulator(cuda_device)
+    dp = sim.config.det_params
+    pts = [torch.from_numpy(a).to(cuda_device)
+           for a in _rows_points(7, 1003, 3)]
+    args = (*pts, sim.pad_table, sim._grid_lo_mm, sim._grid_n_mm,
+            dp.diffusion, dp.efield, sim.config.drift_velocity, 1)
+    before = deposit_cuda.launches_deposit_rows
+    got = deposition.deposit_rows(*args)
+    assert deposit_cuda.launches_deposit_rows == before + 1
+    ref = deposition.deposit_rows_plain(*args)
+    assert torch.equal(got, ref)
+    keys = got >> 32
+    assert (keys == SENT).any() and (keys != SENT).any()
+    with pytest.raises(ValueError):  # wrong dtype: raise, no fallback
+        deposition.deposit_rows(*pts[:4], pts[4].long(), *args[5:])
+
+
+def test_default_step_takes_the_rows_kernel(cuda_device):
+    """The default configuration launches the deposit-rows kernel and not
+    K2; the fused-merge, two-stage one keeps K2."""
+    for cfg, rows, k2 in (({}, 1, 0), (dict(merge="fused"), 0, 1)):
+        sim, vert, mom = _simulator(cuda_device, n_time_steps=1000,
+                                    events_per_batch=8, **cfg)
+        before = (deposit_cuda.launches_deposit_rows, deposit_cuda.launches)
+        sim.simulate_batch(vert[:8], mom[:8], seed=1, assemble=False)
+        after = (deposit_cuda.launches_deposit_rows, deposit_cuda.launches)
+        assert (after[0] - before[0], after[1] - before[1]) == (rows, k2)
 
 
 def test_rows_and_pad_lookup_kernels_match_plain(cuda_device):

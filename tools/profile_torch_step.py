@@ -10,8 +10,25 @@ step, the device time by stage (record_function ranges), and the kernels
 with the most device time.
 
 Run from the repository root on a machine with a CUDA card:
-``python3 tools/profile_torch_step.py [--fused] [trace.json]``; with a
-path, the chrome trace of the profiled batch is written there.
+``python3 tools/profile_torch_step.py [--fused | --rows-before]
+[trace.json]``; with a path, the chrome trace of the profiled batch is
+written there. ``--rows-before`` profiles the default step with its
+deposit rows built as they were before the rows kernel
+(``deposition.deposit_rows_plain`` with K2 as its lookup: the mesh and
+charges in PyTorch passes, K2, the mask and pack64), so the
+``deposit_rows`` span of the two runs compares the two ways on one card.
+
+``--transport-steps`` instead builds K1 (``csrc/transport.cu``) with
+``-DATTPC_K1_STEPS``, runs one 500-step window of the flagship batch's 768
+tracks, with the fast paths and with ``force_ieee`` (each checked against
+the default build's output bit for bit), and prints, from the clock64()
+that lane 0 of each warp records at the start of every step:
+SM cycles per step while any lane of the warp is alive (mean, median,
+90th percentile), the cycles of the dead tail of the window (after the
+warp's last live lane died), the window's cycles, the steps of the
+longest-lived track, and the share of the latency bound (the critical
+path of one live step, ``tools/k1_critical_path.py``, taken in the same
+run) in the measured live cycles.
 
 ``--sort-phases`` instead builds K3's cluster route
 (``csrc/sort_cluster.cu``) with ``-DATTPC_SORT_PHASES``, sorts the
@@ -25,6 +42,7 @@ CTAs; and how many clusters of each size the card holds at once.
 """
 
 import ctypes
+import functools
 import subprocess
 import sys
 import time
@@ -38,7 +56,12 @@ REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
 import chip_smoke  # noqa: E402
-from attpc_engine_tpu_torch.detector import deposition, simulator  # noqa: E402
+import k1_critical_path  # noqa: E402
+from attpc_engine_tpu_torch.detector import (  # noqa: E402
+    deposit_cuda,
+    deposition,
+    simulator,
+)
 
 STAGES = {
     (simulator, "integrate_tracks"): "transport",
@@ -46,6 +69,7 @@ STAGES = {
     (deposition, "_prefix_sum"): "prefix_sum",
     (deposition, "sort_rows"): "merge_sorts",
     (deposition, "merge_runs_fused"): "merge_fused",
+    (deposition, "deposit_rows"): "deposit_rows",
     (simulator, "deposit_and_merge"): "deposit_and_merge",
     (simulator, "sort_rows"): "convert_sort",
 }
@@ -132,6 +156,68 @@ def sort_phases() -> None:
         timeout=60).stdout.strip())
 
 
+def transport_steps() -> None:
+    """Per-step SM cycles of K1 (see the module doc), both with the
+    branch-free fast paths and with every step through the compiler's IEEE
+    operators (``force_ieee``)."""
+    from attpc_engine_tpu_torch import kernels
+    from attpc_engine_tpu_torch.detector import transport_cuda
+
+    so = kernels.BUILD_DIR / "libattpc_k1_steps.so"
+    kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS, "-DATTPC_K1_STEPS",
+                    "-shared", "-o", str(so),
+                    str(kernels.CSRC / "transport.cu")],
+                   check=True, timeout=kernels.BUILD_TIMEOUT_S)
+    lib = ctypes.CDLL(str(so))
+    kernels.declare_rk4(lib)
+    lib.attpc_k1_step_clock.argtypes = [ctypes.c_void_p]
+    sim, vert, mom = chip_smoke.flagship_simulator("cuda")
+    b_ev = chip_smoke.BATCH
+    ti = chip_smoke.transport_inputs(sim, vert[:b_ev], mom[:b_ev])
+    steps, b = ti["steps"], ti["b"]
+    n_warps = -(-b // 32)
+    clock = torch.zeros((n_warps, steps + 1), dtype=torch.int64,
+                        device="cuda")
+    kernels.check(lib.attpc_k1_step_clock(clock.data_ptr()), "k1_step_clock")
+    ref = ti["run"](transport_cuda.rk4_window_cuda)
+    now, top = chip_smoke.sm_clock_mhz()
+    path = k1_critical_path.fast_step()["cycles"]
+    print(f"SM clock {now} MHz (max {top} MHz); critical path of a live "
+          f"step {path:.1f} SM cycles")
+    for force_ieee in (False, True):
+        def instrumented(*args):
+            transport_cuda.launch_rk4(lib, *args, force_ieee=force_ieee)
+
+        ms = chip_smoke.cuda_ms(lambda: ti["run"](instrumented), 5)
+        got = ti["run"](instrumented)
+        if not all(torch.equal(a, c) for a, c in zip(got, ref)):
+            raise AssertionError("the instrumented K1 differs from the "
+                                 "default build")
+        per_track = chip_smoke.steps_run(ti["alive0"], got[2]).cpu().numpy()
+        live_in = torch.cat([ti["alive0"][None], got[2][:-1]]).cpu().numpy()
+        c = clock.cpu().numpy().astype(np.float64)
+        dt = np.diff(c, axis=1)  # [warps, steps]
+        pad = n_warps * 32 - b
+        warp_live = np.pad(live_in, ((0, 0), (0, pad))).reshape(
+            steps, n_warps, 32).any(axis=2).T  # [warps, steps]
+        live_dt, tail_dt = dt[warp_live], dt[~warp_live]
+        window = c[:, -1] - c[:, 0]
+        share = path / np.mean(live_dt)
+        print(f"K1{' (force_ieee)' if force_ieee else ''}, {b} tracks in "
+              f"{n_warps} warps, {steps}-step window (instrumented build "
+              f"{ms:.3f} ms): SM cycles per live step mean "
+              f"{live_dt.mean():.1f}, median {np.median(live_dt):.1f}, p90 "
+              f"{np.percentile(live_dt, 90):.1f} over {live_dt.size} "
+              f"warp-steps; dead tail {tail_dt.sum() / n_warps:.0f} cycles a "
+              f"warp ({tail_dt.size / n_warps:.1f} steps, "
+              f"{tail_dt.mean():.1f} a step); window {window.mean():.0f} "
+              f"cycles a warp (max {window.max():.0f}); longest-lived track "
+              f"{int(per_track.max())} steps; latency bound "
+              f"{path:.1f} cycles a step, share of the measured live step "
+              f"{share:.3f}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -141,10 +227,20 @@ def main() -> int:
         print(f"card: {chip_smoke.card_line()}; K3 cluster route phases")
         sort_phases()
         return 0
+    if "--transport-steps" in args:
+        print(f"card: {chip_smoke.card_line()}; K1 cycles per step")
+        transport_steps()
+        return 0
     fused = "--fused" in args
-    args = [a for a in args if a != "--fused"]
+    rows_before = "--rows-before" in args
+    args = [a for a in args if a not in ("--fused", "--rows-before")]
     print(f"card: {chip_smoke.card_line()}; configuration "
-          f"{'fused' if fused else 'default'}")
+          f"{'fused' if fused else 'default'}"
+          f"{', rows built as before the rows kernel' if rows_before else ''}")
+    if rows_before:
+        deposition.deposit_rows = functools.partial(
+            deposition.deposit_rows_plain,
+            lookup=deposit_cuda.packed_key_lookup_cuda)
     for (mod, attr), name in STAGES.items():
         setattr(mod, attr, _ranged(name, getattr(mod, attr)))
     engine = dict(merge="fused", lookup="one_stage") if fused else {}
@@ -175,8 +271,8 @@ def main() -> int:
           f"{dev_us / 1e3:.3f} ms; device idle share "
           f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}; steps_alive "
           f"{int(meta[-2])}")
-    print("device span by stage (ms; deposit_and_merge holds merge_sorts, "
-          "prefix_sum and merge_fused):")
+    print("device span by stage (ms; deposit_and_merge holds deposit_rows, "
+          "merge_sorts, prefix_sum and merge_fused):")
     for e in events:
         if (e.key in STAGES.values()
                 and e.device_type == torch.autograd.DeviceType.CUDA):
