@@ -1,6 +1,6 @@
 // K5, tail: the per-event merge after the first row sort.
 //
-// Replaces, with K3 (sort_rows.cu) as its first sort, the Pallas kernel
+// Replaces, with K3 (sort_cluster.cu) as its first sort, the Pallas kernel
 // attpc_engine_tpu/detector/sort_pallas.py `_merge_kernel` (called by
 // merge_runs_fused_pallas). The caller sorts pack64(key, charge) rows with
 // K3, which is the (key, charge) order of the Pallas network because the

@@ -3,10 +3,13 @@
 //
 // Replaces the Pallas kernel attpc_engine_tpu/detector/sort_pallas.py
 // `_sort_kernel` (sort_pairs_pallas, and sort_i64_pallas through it) for
-// rows that fit the shared memory of 16 CTAs; wider rows keep the bitonic
-// route of sort_rows.cu (the wrapper, detector/sort_cuda.py, chooses by
-// width before any launch). Equal elements are identical bit patterns, so
-// the output is bit-exact whatever the algorithm.
+// rows that fit the shared memory of 16 CTAs. Wider rows take the wide
+// route: this kernel sorts each of their chunks as a segment of its own
+// (`per_row` segments a row, the last one `last_width` wide), and the
+// merge passes of merge_rows.cu join the sorted chunks (the wrapper,
+// detector/sort_cuda.py, chooses by width before any launch). Equal
+// elements are identical bit patterns, so the output is bit-exact whatever
+// the algorithm.
 //
 // What bounds it on the card: bytes through device memory. At the merge
 // shape [384, 102400] the row is read once and written once: 629 MB, 0.188
@@ -143,17 +146,25 @@ __device__ void store_chunk(unsigned long long* __restrict__ g,
   }
 }
 
-// One cluster per row: grid = rows * n_cta, cluster dims (n_cta, 1, 1).
-// `chunk` is even and chunk * n_cta >= width.
+// One cluster per segment: grid = rows * per_row * n_cta, cluster dims
+// (n_cta, 1, 1). Segment p of row r starts at r * stride + p * width and
+// holds `width` elements, the last of a row `last_width` (<= width).
+// `chunk` is even and chunk * n_cta >= width. A whole row is the segment
+// with per_row = 1 and stride = last_width = width.
 __global__ void __launch_bounds__(kThreads, 1)
 radix_cluster_kernel(const unsigned long long* __restrict__ in,
                      unsigned long long* __restrict__ out, int64_t width,
-                     int chunk) {
+                     int chunk, int64_t stride, int per_row,
+                     int64_t last_width) {
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned n_cta = cluster.num_blocks();
   const unsigned rank_in_cluster = cluster.block_rank();
-  const int64_t row = blockIdx.x / n_cta;
+  const int64_t segment = blockIdx.x / n_cta;
+  const int64_t row = segment / per_row;
+  const int part = (int)(segment - row * per_row);
+  const int64_t base = row * stride + (int64_t)part * width;
+  if (part == per_row - 1) width = last_width;
 
   // the two element buffers: buf[0, chunk) and buf[chunk, 2 * chunk)
   unsigned long long* const buf = reinterpret_cast<unsigned long long*>(smem);
@@ -169,7 +180,7 @@ radix_cluster_kernel(const unsigned long long* __restrict__ in,
   const int64_t start = (int64_t)rank_in_cluster * chunk;
   const int64_t rest = width - start;
   const int n = rest <= 0 ? 0 : (rest < chunk ? (int)rest : chunk);
-  load_chunk(buf, in + row * width + start, n);
+  load_chunk(buf, in + base + start, n);
 
   // warp `warp` ranks elements [lo, hi) of the chunk, kItems per lane
   const int run = (chunk + kWarps - 1) / kWarps;
@@ -291,7 +302,7 @@ radix_cluster_kernel(const unsigned long long* __restrict__ in,
     if (!skipped) cur ^= 1;
   }
   PHASE(41);
-  store_chunk(out + row * width + start, buf + cur * chunk, n);
+  store_chunk(out + base + start, buf + cur * chunk, n);
   PHASE(42);
 }
 
@@ -328,24 +339,35 @@ void cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr,
 
 }  // namespace
 
-// in [rows, width] -> out [rows, width], each row sorted ascending as
-// signed int64, one cluster of n_cta CTAs per row, each holding `chunk`
-// (even, chunk * n_cta >= width) elements. Returns the first cudaError_t.
+// in [rows, stride] -> out [rows, stride]: each of the per_row segments
+// of a row (the first per_row - 1 of `width` elements, the last of
+// `last_width`, back to back from the row's start) sorted ascending as
+// signed int64, one cluster of n_cta CTAs per segment, each holding
+// `chunk` (even, chunk * n_cta >= width) elements. Whole rows are
+// per_row = 1, stride = last_width = width. Returns the first cudaError_t.
 extern "C" int attpc_sort_rows_cluster(const void* in, void* out, int rows,
                                        int64_t width, int n_cta, int chunk,
-                                       void* stream) {
+                                       int64_t stride, int per_row,
+                                       int64_t last_width, void* stream) {
   if (rows <= 0 || width <= 0) return (int)cudaSuccess;
-  if ((int64_t)n_cta * chunk < width) return (int)cudaErrorInvalidValue;
+  if ((int64_t)n_cta * chunk < width || per_row < 1 || last_width < 1 ||
+      last_width > width ||
+      stride < (int64_t)(per_row - 1) * width + last_width ||
+      (int64_t)rows * per_row * n_cta > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
   size_t smem;
   cudaError_t err = prepare(n_cta, chunk, &smem);
   if (err != cudaSuccess) return (int)err;
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  cluster_config(&cfg, &attr, (unsigned)rows * (unsigned)n_cta, n_cta, smem,
-                 (cudaStream_t)stream);
+  cluster_config(&cfg, &attr,
+                 (unsigned)rows * (unsigned)per_row * (unsigned)n_cta, n_cta,
+                 smem, (cudaStream_t)stream);
   err = cudaLaunchKernelEx(&cfg, radix_cluster_kernel,
                            (const unsigned long long*)in,
-                           (unsigned long long*)out, width, chunk);
+                           (unsigned long long*)out, width, chunk, stride,
+                           per_row, last_width);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
 """K5 wrapper: the whole per-event merge of equal (pad, tb) keys.
 
-Kernels: K3 (``sort_cuda.sort_rows``, ``csrc/sort_rows.cu``) for the first
+Kernels: K3 (``sort_cuda.sort_rows``, ``csrc/sort_cluster.cu``) for the first
 sort, then ``csrc/merge_fused.cu`` (``attpc_merge_tail``) for the rest.
 Together they replace the Pallas kernel
 ``attpc_engine_tpu/detector/sort_pallas.py`` ``_merge_kernel``

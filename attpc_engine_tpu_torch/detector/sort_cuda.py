@@ -18,15 +18,19 @@ width alone before any launch:
   of each row, no scratch. The flagship's merge rows take 8 CTAs, the
   convert rows 1, the first budget doubling of ``run_simulation``'s
   overflow retry (204,800) 16.
-- **wide** (``csrc/sort_rows.cu``, ``attpc_sort_rows_i64``): wider rows,
-  which further doublings of the overflow retry make, keep the bitonic
-  network: rows padded to a power of two, 16,384-element tiles in shared
-  memory and passes through a device-memory scratch for larger distances.
+- **wide** (``csrc/sort_cluster.cu`` then ``csrc/merge_rows.cu``): wider
+  rows, which further doublings of the overflow retry make (both merge
+  sorts at point budget 4,096 and more). Each row is cut into ``chunks``
+  (the smallest power of two >= 2 that leaves chunks of at most
+  ``WIDE_CHUNK`` elements), the cluster kernel sorts every chunk as a row
+  of its own (phase A), and log2(chunks) merge-path passes join them
+  (phase B): each row goes through device memory 1 + log2(chunks) times.
+  It allocates its output, one [E, W] scratch and a small split table.
 
-This is a width rule, not a fallback: a cluster launch that fails raises.
+This is a width rule, not a fallback: a launch that fails raises.
 ``sort_rows`` takes ``torch.sort`` (the plain version) for CPU tensors and
-launches the kernel for CUDA tensors, raising where the kernel cannot take
-them. ``launches_cluster`` and ``launches_wide`` count the launches of
+launches the kernels for CUDA tensors, raising where they cannot take
+them. ``launches_cluster`` and ``launches_wide`` count the calls that take
 each route and ``launches`` their sum. ``pack64`` and ``unpack64`` make and
 split the merge sorts' int64 (key, charge) elements.
 """
@@ -45,6 +49,8 @@ __all__ = [
     "sort_rows_plain",
     "sort_rows_cuda",
     "route",
+    "wide_plan",
+    "sort_wide",
     "Route",
     "pack64",
     "unpack64",
@@ -61,7 +67,12 @@ DIGITS = 256
 FIXED_BYTES = (CTA_THREADS // 32) * DIGITS * 2 + 2 * DIGITS * 4 + 128
 CTA_CAPACITY = 13_360  # elements per CTA: two 8-byte buffers of them
 CLUSTER_SIZES = (1, 2, 4, 8, 16)
-MAX_ROWS = 65535  # the wide route's gridDim.y
+# wide route: rows are cut into chunks of at most this many elements, one
+# CTA's: of 2-64 chunks, the one-CTA chunks sorted [384, 409600] and
+# [384, 819200] fastest on an NVIDIA H100 80GB HBM3, 700.00 W, and
+# half-CTA chunks slower (tools/profile_torch_step.py --wide-phases;
+# the table is in PERF.md)
+WIDE_CHUNK = CTA_CAPACITY
 
 launches = 0
 launches_cluster = 0
@@ -72,27 +83,64 @@ _schedulable: dict[int, int] = {}
 
 
 class Route(NamedTuple):
-    """How K3 sorts rows of one width: ``name`` "cluster" with ``n_cta``
-    CTAs of ``chunk`` elements each, or "wide" (n_cta and chunk 0)."""
+    """How K3 sorts rows of one width. "cluster": one cluster of ``n_cta``
+    CTAs of ``chunk`` elements each per row (``chunks`` 1, ``chunk_w`` the
+    width). "wide": each row cut into ``chunks`` chunks of ``chunk_w``
+    elements (the last may be shorter), each sorted by a cluster of
+    ``n_cta`` CTAs of ``chunk``, then ``passes`` merge passes."""
 
     name: str
     n_cta: int
     chunk: int
+    chunks: int
+    chunk_w: int
 
     @property
     def shared_bytes(self) -> int:
-        """Dynamic shared memory of one CTA on the cluster route."""
-        return 16 * self.chunk + FIXED_BYTES if self.n_cta else 0
+        """Dynamic shared memory of one CTA of the cluster kernel."""
+        return 16 * self.chunk + FIXED_BYTES
+
+    @property
+    def passes(self) -> int:
+        """Merge passes after the chunk sort: log2(chunks)."""
+        return self.chunks.bit_length() - 1
 
 
-def route(width: int) -> Route:
-    """The route for rows of ``width``: the smallest cluster whose CTAs
-    hold the row, each an even chunk of ceil(width / n_cta), else wide."""
+def _cluster(width: int) -> Route | None:
+    """The smallest cluster whose CTAs hold a row of ``width``, each an
+    even chunk of ceil(width / n_cta); None if 16 CTAs do not."""
     for n in CLUSTER_SIZES:
         if n * CTA_CAPACITY >= width:
             chunk = max(2, -(-int(width) // n))
-            return Route("cluster", n, chunk + (chunk & 1))
-    return Route("wide", 0, 0)
+            return Route("cluster", n, chunk + (chunk & 1), 1, int(width))
+    return None
+
+
+def wide_plan(width: int, chunks: int) -> Route:
+    """The wide route for rows of ``width`` cut into ``chunks`` (a power of
+    two >= 2) chunks of ceil(width / chunks), each on the cluster that
+    ``route`` gives a row of that width."""
+    if chunks < 2 or chunks & (chunks - 1):
+        raise ValueError(f"chunks={chunks}: expected a power of two >= 2")
+    chunk_w = -(-int(width) // chunks)
+    inner = _cluster(chunk_w)
+    if inner is None or (chunks - 1) * chunk_w >= width:
+        raise ValueError(f"rows of {width} cannot be cut into {chunks} "
+                         f"chunks that the cluster kernel sorts")
+    return Route("wide", inner.n_cta, inner.chunk, chunks, chunk_w)
+
+
+def route(width: int) -> Route:
+    """The route for rows of ``width``: the cluster route where 16 CTAs
+    hold the row, else the wide route with the fewest chunks (at least
+    two) of at most ``WIDE_CHUNK`` elements."""
+    r = _cluster(width)
+    if r is not None:
+        return r
+    chunks = 2
+    while -(-int(width) // chunks) > WIDE_CHUNK:
+        chunks *= 2
+    return wide_plan(width, chunks)
 
 
 def pack64(key: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
@@ -130,6 +178,48 @@ def _require_schedulable(r: Route) -> None:
                            f"shared memory each")
 
 
+def _sort_chunks(x: torch.Tensor, out: torch.Tensor, r: Route) -> None:
+    """Each of the ``r.chunks`` chunks of every row of ``x`` sorted into the
+    same place of ``out`` by the cluster kernel: the whole row on the
+    cluster route, phase A on the wide route."""
+    _require_schedulable(r)
+    e, w = x.shape
+    last = w - (r.chunks - 1) * r.chunk_w
+    err = kernels.library().attpc_sort_rows_cluster(
+        kernels.ptr(x), kernels.ptr(out), e, r.chunk_w, r.n_cta, r.chunk, w,
+        r.chunks, last, kernels.stream(x))
+    kernels.check(err, "sort_rows_cluster")
+
+
+def sort_wide(x: torch.Tensor, r: Route, mark=None) -> torch.Tensor:
+    """The wide route's launches on a contiguous CUDA int64 [E, W] under
+    plan ``r`` (``route`` or ``wide_plan``): the chunk sort into one of the
+    output and one scratch, then ``r.passes`` merge passes from one into the
+    other, the buffers chosen by the parity of the passes so that the last
+    lands in the output. ``mark(label)``, if given, is called after each
+    launch (``tools/profile_torch_step.py --wide-phases`` records a CUDA
+    event there). Counts no launch: ``sort_rows_cuda`` does."""
+    e, w = x.shape
+    lib = kernels.library()
+    out, scratch = torch.empty_like(x), torch.empty_like(x)
+    bufs = (scratch, out) if r.passes % 2 else (out, scratch)
+    _sort_chunks(x, bufs[0], r)
+    if mark is not None:
+        mark("chunk sort")
+    n_splits = lib.attpc_merge_rows_splits(e, w, r.chunk_w)
+    splits = torch.empty(n_splits, dtype=torch.int32, device=x.device)
+    run = r.chunk_w
+    for p in range(r.passes):
+        err = lib.attpc_merge_rows_pass(
+            kernels.ptr(bufs[p % 2]), kernels.ptr(bufs[(p + 1) % 2]),
+            kernels.ptr(splits), n_splits, e, w, run, kernels.stream(x))
+        kernels.check(err, "merge_rows_pass")
+        if mark is not None:
+            mark(f"merge pass {p + 1}")
+        run *= 2
+    return out
+
+
 def sort_rows_cuda(x: torch.Tensor) -> torch.Tensor:
     """Launch K3 on a contiguous CUDA int64 [E, W]; returns a new tensor.
     Rows of at most 16 * CTA_CAPACITY elements take the cluster route,
@@ -138,25 +228,13 @@ def sort_rows_cuda(x: torch.Tensor) -> torch.Tensor:
     if x.dim() != 2:
         raise ValueError(f"expected [E, W], got shape {tuple(x.shape)}")
     kernels.require(x, "x", torch.int64)
-    e, w = x.shape
-    r = route(w)
-    out = torch.empty_like(x)
+    r = route(x.shape[1])
     if r.name == "cluster":
-        _require_schedulable(r)
-        err = kernels.library().attpc_sort_rows_cluster(
-            kernels.ptr(x), kernels.ptr(out), e, w, r.n_cta, r.chunk,
-            kernels.stream(x))
-        kernels.check(err, "sort_rows_cluster")
+        out = torch.empty_like(x)
+        _sort_chunks(x, out, r)
         launches_cluster += 1
     else:
-        if e > MAX_ROWS:
-            raise ValueError(f"{e} rows exceed the wide route's {MAX_ROWS}")
-        total = 1 << (w - 1).bit_length()
-        scratch = torch.empty((e, total), dtype=torch.int64, device=x.device)
-        err = kernels.library().attpc_sort_rows_i64(
-            kernels.ptr(x), kernels.ptr(out), kernels.ptr(scratch), e, w,
-            total, kernels.stream(x))
-        kernels.check(err, "sort_rows_i64")
+        out = sort_wide(x, r)
         launches_wide += 1
     launches += 1
     return out

@@ -33,7 +33,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("transport.cu", "deposit.cu", "deposit_rows.cu", "sort_cluster.cu",
-           "sort_rows.cu", "merge_fused.cu")
+           "merge_rows.cu", "merge_fused.cu")
 LIBRARY = "libattpc_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -126,15 +126,19 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.attpc_pad_lookup.argtypes = [vp] * 4 + [i64, vp]
     lib.attpc_deposit_rows.argtypes = (
         [vp] * 10 + [i64, f32, f32, f32, i32, i32, vp])
-    lib.attpc_sort_rows_i64.argtypes = [vp, vp, vp, i32, i64, i64, vp]
-    lib.attpc_sort_rows_cluster.argtypes = [vp, vp, i32, i64, i32, i32, vp]
+    lib.attpc_sort_rows_cluster.argtypes = [
+        vp, vp, i32, i64, i32, i32, i64, i32, i64, vp]
+    lib.attpc_merge_rows_pass.argtypes = [vp, vp, vp, i64, i32, i64, i64, vp]
+    lib.attpc_merge_rows_splits.argtypes = [i32, i64, i64]
+    lib.attpc_merge_rows_splits.restype = i64
     lib.attpc_sort_rows_cluster_occupancy.argtypes = [
         i32, i32, ctypes.POINTER(i32)]
     lib.attpc_merge_tail.argtypes = [vp] * 4 + [i32, i64, i32, i32, vp]
     for fn in (lib.attpc_packed_key_lookup,
                lib.attpc_packed_key_lookup_rows, lib.attpc_pad_lookup,
-               lib.attpc_deposit_rows, lib.attpc_sort_rows_i64, lib.attpc_sort_rows_cluster,
-               lib.attpc_sort_rows_cluster_occupancy, lib.attpc_merge_tail):
+               lib.attpc_deposit_rows, lib.attpc_sort_rows_cluster,
+               lib.attpc_sort_rows_cluster_occupancy,
+               lib.attpc_merge_rows_pass, lib.attpc_merge_tail):
         fn.restype = ctypes.c_int
     lib.attpc_error_string.argtypes = [i32]
     lib.attpc_error_string.restype = ctypes.c_char_p

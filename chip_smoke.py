@@ -28,9 +28,16 @@ Phases (each raises on failure, and nothing is caught):
    merge rows and the flagship's own merge rows (taken from a default
    batch) at [384, 102400] and convert rows at [384, 12288] on the cluster
    route (8 and 1 CTAs), the first overflow-retry doubling [384, 204800]
-   (16 CTAs) and [384, 409600] on the wide route; each must take the
-   route ``sort_cuda.route`` gives it and the cluster route must allocate
-   nothing but its output. Times by CUDA events, beside each kernel's
+   (16 CTAs), and on the wide route (chunk sorts by the cluster kernel,
+   then ``csrc/merge_rows.cu``'s merge passes) merge rows [384, 409600]
+   and [384, 819200] (point budgets 4,096 and 8,192), signed convert rows
+   [384, 393216] (five uniq-budget doublings), the odd width [384,
+   262145] and [384, 409600] rows of one value; each must take the route
+   and plan ``sort_cuda.route`` gives it, the cluster route must allocate
+   nothing but its output and the wide route nothing but its output, one
+   scratch of the rows' size and its split table; the wide route's
+   design floor (1 + log2 chunks times the bound) is printed beside its
+   bound. Times by CUDA events, beside each kernel's
    bound (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
    whichever is larger; for K1 also its latency bound: the critical path
    of one step in the SASS of this checkout's ``transport.cu``, at
@@ -57,6 +64,14 @@ Phases (each raises on failure, and nothing is caught):
    deposit-rows kernel not; its first batch's merged cloud must equal the
    default configuration's in every integer, with charges within rtol 1e-5
    and a one-electron floor.
+4e. The retry-width step: the default configuration at point_budget=4096,
+   the budget ``run_simulation``'s overflow retry reaches after two
+   doublings, over two batches (the first is warm-up): K1, the
+   deposit-rows kernel and K3 must have been launched, K3 on its wide route
+   for both merge sorts of each batch ([384, 409600] rows) and on its
+   cluster route for the convert sort; the first batch's ``meta_i32`` and
+   packed rows must equal, bit for bit, phase 4's first batch (point
+   budget 1,024).
 4c. The pad-id entry point ``deposit_cuda.pad_lookup`` at 393,216 points:
    K7 must have been launched.
 4d. The key entry point ``deposit_cuda.packed_key_lookup`` at 393,216
@@ -64,7 +79,7 @@ Phases (each raises on failure, and nothing is caught):
 5. One JSON line of kernel results, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before each of 4, 4b, 4c and 4d and read
+Launch counts are set to 0 just before each of 4, 4b, 4e, 4c and 4d and read
 just after it. Exits non-zero, with no result line, where there is no CUDA
 device or no repository beside the script.
 """
@@ -107,6 +122,11 @@ KERNELS = {
     "sort_rows": ("sort_cuda", "launches",
                   "attpc_engine_tpu_torch/csrc/sort_cluster.cu",
                   "attpc_engine_tpu/detector/sort_pallas.py:366", "default"),
+    # K3's wide route: chunk sorts by the cluster kernel, then merge passes
+    "sort_rows_wide": ("sort_cuda", "launches_wide",
+                       "attpc_engine_tpu_torch/csrc/merge_rows.cu",
+                       "attpc_engine_tpu/detector/sort_pallas.py:366",
+                       "retry_width"),
     "merge_fused": ("merge_cuda", "launches",
                     "attpc_engine_tpu_torch/csrc/merge_fused.cu",
                     "attpc_engine_tpu/detector/sort_pallas.py:279", "fused"),
@@ -574,20 +594,23 @@ def flagship_sort_rows(sim, vertices, momenta) -> torch.Tensor:
 
 def check_sort(x: torch.Tensor, label: str, route: tuple, card: str) -> dict:
     """K3 against torch.sort (also the library call) on rows ``x``: bit-
-    exact, on the expected (route, n_cta), and on the cluster route with
-    no allocation but the output."""
+    exact, on the expected (route, n_cta) (n_cta None: any), and with no
+    allocation but the output (the wide route: the output, one scratch
+    like ``x`` and its split table). The plan is ``sort_cuda.route``'s."""
     from attpc_engine_tpu_torch.detector import sort_cuda
 
     r = sort_cuda.route(x.shape[1])
-    if (r.name, r.n_cta) != route:
+    if r.name != route[0] or route[1] not in (None, r.n_cta):
         raise AssertionError(f"K3 {label}: route {r}, expected {route}")
+    wide = r.name == "wide"
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     got = sort_cuda.sort_rows_cuda(x)
     extra = torch.cuda.max_memory_allocated() - before
-    # the allocator may hand out up to 1 MiB more than it was asked for
-    if r.name == "cluster" and extra > x.numel() * 8 + (1 << 20):
+    # the allocator may hand out up to 1 MiB more than it was asked for;
+    # the wide route's split table is < 1 MiB at these shapes
+    if extra > (2 if wide else 1) * x.numel() * 8 + (1 << 20):
         raise AssertionError(f"K3 {label}: allocated {extra} B, the output "
                              f"is {x.numel() * 8} B")
     ref = sort_cuda.sort_rows_plain(x)
@@ -600,13 +623,19 @@ def check_sort(x: torch.Tensor, label: str, route: tuple, card: str) -> dict:
     ms = cuda_ms(lambda: sort_cuda.sort_rows_cuda(x), reps)
     plain_ms = cuda_ms(lambda: sort_cuda.sort_rows_plain(x), reps)
     bnd = bound(2 * x.numel() * 8)
+    floor_ms = (1 + r.passes) * bnd["bound_ms"]
+    plan = (f"{r.chunks} chunks of {r.chunk_w}, each {r.n_cta} CTAs of "
+            f"{r.chunk}, then {r.passes} merge passes" if wide
+            else f"{r.n_cta} CTAs of {r.chunk}")
     print(f"K3 row sort, {label} {list(x.shape)}: bit-exact; route {r.name}"
-          f"{f' ({r.n_cta} CTAs of {r.chunk})' if r.n_cta else ''}, "
-          f"{extra} B allocated; kernel {ms:.3f} ms, plain (torch.sort, the "
-          f"library call) {plain_ms:.3f} ms, ratio {ms / plain_ms:.3f}, "
-          f"bound {bnd['bound_ms']:.4f} ms [{card}]")
+          f" ({plan}), {extra} B allocated; kernel {ms:.3f} ms, plain "
+          f"(torch.sort, the library call) {plain_ms:.3f} ms, ratio "
+          f"{ms / plain_ms:.3f}, bound {bnd['bound_ms']:.4f} ms"
+          f"{f', design floor {floor_ms:.4f} ms' if wide else ''} [{card}]")
     return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **bnd,
             "library_ms": plain_ms, "k3_route": r.name, "n_cta": r.n_cta,
+            "chunks": r.chunks, "chunk_w": r.chunk_w, "passes": r.passes,
+            "floor_ms": floor_ms, "allocated_bytes": extra,
             "width": x.shape[1]}
 
 
@@ -709,14 +738,18 @@ def check_rows(sim, out, n_events: int) -> int:
 CLOUD_INTEGERS = ("pads", "tbs_i", "labels", "events", "cloud_valid",
                   "counts", "n_points", "uniq_overflow", "pool_overflow",
                   "uniq_max")
+RETRY_POINT_BUDGET = 4096  # run_simulation's second doubling of 1,024
 
 
 def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
-              card: str) -> dict:
-    """Four batches through simulate_batch + host assembly, launch counts
-    set to 0 just before and read just after; the device step of batches
-    2-4 is timed (dispatch until the metadata reached the host). Returns the
-    counts, the timing and the first batch's merged cloud."""
+              card: str, wide_per_batch: int = 0) -> dict:
+    """The batches of ``vertices`` through simulate_batch + host assembly,
+    launch counts set to 0 just before and read just after; the device
+    step of every batch but the first is timed (dispatch until the
+    metadata reached the host). K3 must take its wide route
+    ``wide_per_batch`` times a batch (0 at the flagship's widths) and its
+    cluster route at least once. Returns the counts, the timing and the
+    first batch's merged cloud, meta_i32 and packed rows."""
     from attpc_engine_tpu_torch.detector.simulator import overflow_kinds
 
     step_s, asm_s, rows, first = [], [], 0, None
@@ -731,7 +764,7 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
         t1 = time.perf_counter()
         kinds = overflow_kinds(meta)
         if kinds:
-            raise AssertionError(f"{label}: overflow at default budgets: "
+            raise AssertionError(f"{label}: overflow at its budgets: "
                                  f"{kinds}")
         counts = meta[:len(v)]
         total = check_rows(sim, out, len(v))
@@ -743,6 +776,7 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
             raise AssertionError("malformed Spyral rows")
         if first is None:
             first = {k: out[k] for k in CLOUD_INTEGERS + ("charges",)}
+            first.update(meta_i32=meta, packed=out["packed"][:total].cpu())
         step_s.append(t1 - t0)
         asm_s.append(t2 - t1)
         rows += total
@@ -755,9 +789,9 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
                              f"{missing}, kernels off the path launched "
                              f"{extra}: {launches}")
     k3 = routes["sort_rows"]
-    if k3["cluster"] == 0 or k3["wide"] != 0:
-        raise AssertionError(f"{label}: K3 must take its cluster route "
-                             f"only at the flagship's widths: {k3}")
+    if k3["cluster"] == 0 or k3["wide"] != wide_per_batch * len(step_s):
+        raise AssertionError(f"{label}: K3 by route {k3}, expected the "
+                             f"wide route {wide_per_batch} times a batch")
     timed = step_s[1:]  # the first batch is warm-up
     ms = 1e3 * float(np.mean(timed))
     print(f"{label} path: {len(step_s)} batches of {BATCH} events, {rows} rows;"
@@ -768,6 +802,18 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
           f", K3 by route {k3} [{card}]")
     return {"launches": launches, "routes": routes, "ms_per_batch": ms,
             "events_per_s": BATCH / float(np.mean(timed)), "first": first}
+
+
+def compare_retry_width(flagship_first: dict, retry_first: dict) -> None:
+    """Phase 4e's first batch (point budget 4,096) against phase 4's (1,024):
+    meta_i32 and the packed rows bit for bit, since the padding lanes of
+    the wider merge rows sort last and add nothing."""
+    if not (np.array_equal(retry_first["meta_i32"], flagship_first["meta_i32"])
+            and torch.equal(retry_first["packed"], flagship_first["packed"])):
+        raise AssertionError("retry width: meta_i32 or packed rows differ "
+                             "from the point-budget-1,024 batch")
+    print(f"retry width vs default, first batch: meta_i32 and "
+          f"{len(retry_first['packed'])} packed rows bit-identical")
 
 
 def compare_clouds(default: dict, fused: dict, gain: float) -> None:
@@ -868,8 +914,20 @@ def main() -> int:
         "retry": check_sort(sort_inputs(2 * w, False),
                             "first overflow-retry width", ("cluster", 16),
                             card),
-        "wide": check_sort(sort_inputs(4 * w, False), "wide-route rows",
-                           ("wide", 0), card),
+        "wide": check_sort(sort_inputs(4 * w, False),
+                           "merge rows at point budget 4,096", ("wide", None),
+                           card),
+        "wide_convert": check_sort(sort_inputs(32 * cap, True),
+                                   "signed convert rows, five uniq "
+                                   "doublings", ("wide", None), card),
+        "wide_819200": check_sort(sort_inputs(8 * w, False),
+                                  "merge rows at point budget 8,192",
+                                  ("wide", None), card),
+        "wide_odd": check_sort(sort_inputs(262145, False), "odd width",
+                               ("wide", None), card),
+        "wide_equal": check_sort(
+            torch.full((BATCH, 4 * w), (2**31 - 1) << 32, device="cuda"),
+            "rows of one value", ("wide", None), card),
     }
     res = {
         "transport": check_transport(sim, vertices[:BATCH], momenta[:BATCH],
@@ -877,6 +935,7 @@ def main() -> int:
         "deposit_rows": deposit_rows["flagship"],
         "deposit": check_deposit(sim, inputs, card),
         "sort_rows": sorts["merge"],
+        "sort_rows_wide": sorts["wide"],
         "packed_key_lookup_rows": check_rows_lookup(sim, inputs, card),
         "pad_lookup": check_pad_lookup(sim, inputs, card),
         "merge_fused": check_merge_fused(
@@ -892,11 +951,13 @@ def main() -> int:
         "default": main_path(sim, vertices, momenta, "default",
                              ("transport", "deposit_rows", "sort_rows"),
                              ("deposit", "merge_fused",
-                              "packed_key_lookup_rows", "pad_lookup"), card),
+                              "packed_key_lookup_rows", "pad_lookup",
+                              "sort_rows_wide"), card),
         "fused": main_path(sim_fused, vertices, momenta, "fused",
                            ("transport", "sort_rows", "merge_fused",
                             "packed_key_lookup_rows"),
-                           ("deposit", "deposit_rows", "pad_lookup"), card),
+                           ("deposit", "deposit_rows", "pad_lookup",
+                            "sort_rows_wide"), card),
         "pad_lookup": entry_point_path(
             "pad_lookup",
             lambda: deposit_cuda.pad_lookup(ix, iy, table), card),
@@ -905,6 +966,17 @@ def main() -> int:
             lambda: deposit_cuda.packed_key_lookup(ix, iy, tbr, table, 1,
                                                    2**31 - 1), card),
     }
+    del sim_fused
+    sim_retry, _, _ = flagship_simulator(
+        "cuda", point_budget=RETRY_POINT_BUDGET)
+    paths["retry_width"] = main_path(
+        sim_retry, vertices[:2 * BATCH], momenta[:2 * BATCH], "retry-width",
+        ("transport", "deposit_rows", "sort_rows", "sort_rows_wide"),
+        ("deposit", "merge_fused", "packed_key_lookup_rows", "pad_lookup"),
+        card, wide_per_batch=2)
+    del sim_retry
+    compare_retry_width(paths["default"]["first"],
+                        paths["retry_width"]["first"])
     compare_clouds(paths["default"]["first"], paths["fused"]["first"],
                    float(sim.config.det_params.mpgd_gain))
     check_against_cpu(sim, vertices, momenta)
@@ -917,15 +989,16 @@ def main() -> int:
                "launches_by_path": {p: paths[p]["launches"][name]
                                     for p in paths},
                **res[name]}
-        if name == "sort_rows":
-            row["wide_source"] = "attpc_engine_tpu_torch/csrc/sort_rows.cu"
-            for key in ("convert", "flagship", "retry", "wide"):
+        if name in ("sort_rows", "sort_rows_wide"):
+            row["wide_source"] = "attpc_engine_tpu_torch/csrc/merge_rows.cu"
+            for key in sorts:
                 row.update({f"{key}_{k}": sorts[key][k] for k in (
                     "ms", "plain_ms", "bound_ms", "library_ms")})
             row["shapes"] = {key: {k: v[k] for k in (
-                "width", "k3_route", "n_cta", "ms", "library_ms", "bound_ms")}
-                for key, v in sorts.items()}
-            row["launches_by_route"] = {p: paths[p]["routes"][name]
+                "width", "k3_route", "n_cta", "chunks", "chunk_w", "passes",
+                "ms", "library_ms", "bound_ms", "floor_ms",
+                "allocated_bytes")} for key, v in sorts.items()}
+            row["launches_by_route"] = {p: paths[p]["routes"]["sort_rows"]
                                         for p in paths}
         if name == "deposit_rows":
             row.update(synthetic_ms=deposit_rows["synthetic"]["ms"],
@@ -944,6 +1017,7 @@ def main() -> int:
         "events_per_s": paths["default"]["events_per_s"],
         "fused_path_ms_per_batch": paths["fused"]["ms_per_batch"],
         "fused_events_per_s": paths["fused"]["events_per_s"],
+        "retry_width_path_ms_per_batch": paths["retry_width"]["ms_per_batch"],
         "card": card}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

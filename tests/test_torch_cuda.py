@@ -151,11 +151,12 @@ def _sort_rows(w: int) -> torch.Tensor:
 
 
 @pytest.mark.parametrize("w", [1, 2, 300, 12288, 12289, 16384, 40000,
-                               102400, 204803, 262145])
+                               102400, 204803, 262145, 409600, 819200])
 def test_sort_kernel_matches_torch_sort(cuda_device, w):
     """Bit-exact on both routes: one CTA (1-12,289; 12,289 ragged), 2-8
     CTAs (16,384-102,400), 16 CTAs with a ragged last chunk (204,803) and
-    the wide route (262,145)."""
+    the wide route (262,145 with a ragged last chunk; 409,600 and 819,200,
+    the merge rows at point budgets 4,096 and 8,192)."""
     x = _sort_rows(w).to(cuda_device)
     got = sort_cuda.sort_rows(x)
     assert torch.equal(got, torch.sort(x, dim=1).values)
@@ -174,20 +175,55 @@ def test_sort_kernel_many_rows(cuda_device, w):
     assert torch.equal(sort_cuda.sort_rows(x), torch.sort(x, dim=1).values)
 
 
+@pytest.mark.parametrize("w", [213761, 409600])
+def test_wide_sort_of_heavy_duplicates(cuda_device, w):
+    """The wide route's tie rule: rows of one value, of two values, of
+    INT64_MAX runs, of the merge rows' sentinel with zero charge beside
+    zero-charge pixels, and of negative keys with long equal runs; every
+    merge tile edge falls inside a run of equal elements."""
+    rng = np.random.default_rng(w)
+    two = np.where(rng.random(w) < 0.5, 7, 9)
+    runs = np.where(rng.random(w) < 0.7, 2**63 - 1, rng.integers(0, 50, w))
+    merge = sort_cuda.pack64(
+        torch.from_numpy(np.where(rng.random(w) < 0.6, SENT,
+                                  rng.integers(0, 3, w) * 2).astype(np.int32)),
+        torch.zeros(w)).numpy()
+    negative = -rng.integers(1, 4, w)
+    x = torch.from_numpy(np.stack([np.full(w, 5), two, runs, merge,
+                                   negative])).to(cuda_device)
+    assert torch.equal(sort_cuda.sort_rows(x), torch.sort(x, dim=1).values)
+
+
 def test_sort_routes_by_width(cuda_device):
     """The flagship's merge width launches only the cluster route, a row
-    wider than 16 CTAs hold only the wide route; ``launches`` is their
-    sum."""
-    for w, name in ((102400, "cluster"), (262145, "wide")):
+    wider than 16 CTAs hold only the wide route, on the plan ``route``
+    gives (chunks of at most ``WIDE_CHUNK``, each on the cluster route);
+    ``launches`` is their sum, and the wide route allocates no more than
+    its output, one scratch of the rows' size and its split table."""
+    for w, name in ((102400, "cluster"), (262145, "wide"), (409600, "wide")):
+        x = torch.zeros((2, w), dtype=torch.int64, device=cuda_device)
         before = (sort_cuda.launches_cluster, sort_cuda.launches_wide,
                   sort_cuda.launches)
-        sort_cuda.sort_rows(torch.zeros((2, w), dtype=torch.int64,
-                                        device=cuda_device))
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        sort_cuda.sort_rows(x)
+        extra = torch.cuda.max_memory_allocated() - allocated
         after = (sort_cuda.launches_cluster, sort_cuda.launches_wide,
                  sort_cuda.launches)
         delta = tuple(a - b for a, b in zip(after, before))
-        assert delta == ((1, 0, 1) if name == "cluster" else (0, 1, 1))
-        assert sort_cuda.route(w).name == name
+        r = sort_cuda.route(w)
+        assert r.name == name
+        if name == "cluster":
+            assert delta == (1, 0, 1) and extra <= x.numel() * 8 + (1 << 20)
+            continue
+        assert delta == (0, 1, 1)
+        assert r.chunks >= 2 and r.chunks & (r.chunks - 1) == 0
+        assert r.chunk_w <= sort_cuda.WIDE_CHUNK < r.chunk_w * 2 or (
+            r.chunks == 2)
+        assert sort_cuda.route(r.chunk_w)[:3] == ("cluster", r.n_cta,
+                                                  r.chunk)
+        assert extra <= 2 * x.numel() * 8 + (1 << 20)
 
 
 def test_sort_kernel_rejects_what_it_cannot_take(cuda_device):

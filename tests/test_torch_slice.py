@@ -71,18 +71,24 @@ def jax_state(sim) -> dict:
     }
 
 
-@pytest.fixture(scope="module")
-def both():
+@pytest.fixture(scope="module", params=[1024, 4096],
+                ids=lambda pb: f"point_budget_{pb}")
+def both(request):
+    """Both steps on the same batch, at the flagship's point budget and at
+    4,096, the overflow retry's second doubling: merge rows of 409,600,
+    which K3 sorts on its wide route on the card and the JAX package with
+    lax.sort (rows padded past 2^18 fail fits_invmem)."""
+    engine = {**ENGINE, "point_budget": request.param}
     pipeline, tiny = _tiny_setup(events_per_batch=E, n_time_steps=T)
     vert, mom = (np.asarray(x) for x in
                  pipeline.run_batch(E, key=jax.random.PRNGKey(5)))
-    jsim = JaxSim(tiny.config, Z, A, engine=JaxEngine(**ENGINE))
+    jsim = JaxSim(tiny.config, Z, A, engine=JaxEngine(**engine))
     key = jax.random.PRNGKey(11)
     jout = jsim.simulate_batch(key, vert, mom, assemble=False)
     keys_e = jax.vmap(jax.random.split)(event_keys(key, E, 0))[:, 0]
     noise = _jax_fano_noise(keys_e, T, E * jsim.k_tracks, CHUNK)
     tsim = DetectorSimulator(torch_config(), Z, A,
-                             engine=EngineParams(**ENGINE), device="cpu")
+                             engine=EngineParams(**engine), device="cpu")
     tsim.from_jax_state(jax_state(jsim))
     tout = tsim.simulate_batch(vert, mom, noise=noise, assemble=False)
     jnp_out = {k: np.asarray(v) for k, v in jout.items()}
@@ -424,6 +430,27 @@ def test_step_fused_configuration_matches_default():
     np.testing.assert_array_equal(fm[n:], dm[n:])
     assert np.abs(fm[:n] - dm[:n]).sum() <= max(1, dm[:n].sum() // 1000)
     assert dm[:n].sum() > 0 and d["packed"].shape[1] == 2
+
+
+def test_step_at_retry_point_budget_matches_flagship_budget():
+    """16 flagship events through simulate_batch at point budget 4,096 (the
+    overflow retry's second doubling; merge rows of 409,600, K3's wide
+    route on the card) and at 1,024: meta_i32 and the packed rows equal bit
+    for bit, since the padding lanes sort last and add nothing."""
+    from tests.test_torch_cuda import SMOKE
+
+    data = np.load(SMOKE)
+    sim = DetectorSimulator(torch_config(), data["proton_numbers"],
+                            data["mass_numbers"], device="cpu",
+                            engine=EngineParams(n_time_steps=T,
+                                                events_per_batch=16))
+    outs = [sim.simulate_batch(data["vertices"][:16], data["momenta"][:16],
+                               seed=1, assemble=False, point_budget=pb)
+            for pb in (1024, 4096)]
+    for o in outs:
+        assert o["meta_i32"][:16].sum() > 0
+    assert torch.equal(outs[0]["meta_i32"], outs[1]["meta_i32"])
+    assert torch.equal(outs[0]["packed"], outs[1]["packed"])
 
 
 def test_run_simulation_fused_writes_spyral_files(kine_file, tmp_path):

@@ -127,24 +127,123 @@ def test_prefix_sum_associates_as_jax_cumsum(w):
 
 @pytest.mark.parametrize("w,name,n_cta", [
     (1, "cluster", 1), (12288, "cluster", 1), (102400, "cluster", 8),
-    (204800, "cluster", 16), (409600, "wide", 0),
+    (204800, "cluster", 16), (213761, "wide", 1), (262145, "wide", 1),
+    (409600, "wide", 1), (819200, "wide", 1),
 ])
 def test_sort_route_rule(w, name, n_cta):
     """K3's width rule: the smallest cluster whose CTAs hold the row, each
     an even chunk within a block's 232,448 B of shared memory, else the
-    wide route."""
+    wide route: the fewest chunks, a power of two >= 2, of at most
+    WIDE_CHUNK elements, each on the cluster the rule gives its width."""
     r = sort_cuda.route(w)
     assert (r.name, r.n_cta) == (name, n_cta)
+    assert r.chunk % 2 == 0 and r.n_cta * r.chunk >= r.chunk_w
+    assert r.shared_bytes == 16 * r.chunk + sort_cuda.FIXED_BYTES
+    assert r.shared_bytes <= sort_cuda.SHARED_BYTES == 232_448
     if r.name == "cluster":
-        assert r.chunk % 2 == 0 and r.n_cta * r.chunk >= w
-        assert r.shared_bytes == 16 * r.chunk + sort_cuda.FIXED_BYTES
-        assert r.shared_bytes <= sort_cuda.SHARED_BYTES == 232_448
+        assert (r.chunks, r.chunk_w, r.passes) == (1, w, 0)
         smaller = [n for n in sort_cuda.CLUSTER_SIZES if n < r.n_cta]
         assert not smaller or smaller[-1] * sort_cuda.CTA_CAPACITY < w
     else:
         assert w > sort_cuda.CLUSTER_SIZES[-1] * sort_cuda.CTA_CAPACITY
+        assert r.chunks >= 2 and r.chunks & (r.chunks - 1) == 0
+        assert r.passes == r.chunks.bit_length() - 1
+        assert r.chunks * r.chunk_w >= w > (r.chunks - 1) * r.chunk_w
+        assert r.chunk_w <= sort_cuda.WIDE_CHUNK
+        assert r.chunks == 2 or -(-w // (r.chunks // 2)) > sort_cuda.WIDE_CHUNK
+        assert sort_cuda.route(r.chunk_w)[:3] == ("cluster", r.n_cta, r.chunk)
+        assert r == sort_cuda.wide_plan(w, r.chunks)
+    assert sort_cuda.WIDE_CHUNK <= 16 * sort_cuda.CTA_CAPACITY
     assert sort_cuda.route(16 * sort_cuda.CTA_CAPACITY).shared_bytes <= (
         sort_cuda.SHARED_BYTES)
+
+
+def _split(a, b, d):
+    """Merge path split of diagonal d (csrc/merge_rows.cu ``split``): how
+    many of the first d outputs of merging a and b come from a, where
+    a[i] <= b[j] takes a."""
+    lo, hi = max(0, d - len(b)), min(d, len(a))
+    while lo < hi:
+        mid = (lo + hi) >> 1
+        if a[mid] <= b[d - 1 - mid]:
+            lo = mid + 1
+        else:
+            hi = mid
+    return lo
+
+
+def _merge_pass(rows, run, threads, items):
+    """One pass of merge_rows.cu, emulated: the partition searches each
+    tile's first diagonal over the whole pair, then each thread of a tile
+    searches its own diagonal inside the tile's slices and merges its
+    ``items`` outputs serially, with the same tie rule throughout."""
+    tile = threads * items
+    out = []
+    for row in rows.tolist():
+        w, merged = len(row), []
+        for a0 in range(0, w, 2 * run):
+            na = min(run, w - a0)
+            nb = max(0, min(run, w - a0 - na))
+            a, b = row[a0:a0 + na], row[a0 + na:a0 + na + nb]
+            tiles = -(-2 * run // tile)
+            splits = [_split(a, b, min(q * tile, na + nb))
+                      for q in range(tiles + 1)]
+            for q in range(tiles):
+                d0 = min(q * tile, na + nb)
+                d1 = min(d0 + tile, na + nb)
+                sa = a[splits[q]:splits[q + 1]]
+                sb = b[d0 - splits[q]:d1 - splits[q + 1]]
+                for k0 in range(0, d1 - d0, items):
+                    ia = _split(sa, sb, k0)
+                    jb = k0 - ia
+                    for _ in range(min(items, d1 - d0 - k0)):
+                        if ia < len(sa) and (jb >= len(sb) or sa[ia] <= sb[jb]):
+                            merged.append(sa[ia])
+                            ia += 1
+                        else:
+                            merged.append(sb[jb])
+                            jb += 1
+        out.append(merged)
+    return torch.tensor(out, dtype=torch.int64)
+
+
+def _wide_rows(case, rng):
+    """Signed int64 rows for the merge-path test, by case."""
+    e, w = 3, 157
+    if case == "all_equal":
+        return np.full((e, w), 42, dtype=np.int64)
+    if case == "two_valued":
+        return np.where(rng.random((e, w)) < 0.5, 3, 8).astype(np.int64)
+    if case == "int64_max_runs":
+        return np.where(rng.random((e, w)) < 0.6, np.int64(2**63 - 1),
+                        rng.integers(-5, 5, (e, w)))
+    if case == "negative_keys":
+        return rng.integers(-2**63, 0, (e, w)) | rng.integers(0, 3, (e, w))
+    if case == "ragged_last_chunk":  # 157 = 4 * 40 - 3
+        return rng.integers(-20, 20, (e, w))
+    return rng.integers(-2**62, 2**62, (e, 331))  # runs of 83, tiles of 12
+
+
+@pytest.mark.parametrize("case", [
+    "all_equal", "two_valued", "int64_max_runs", "negative_keys",
+    "ragged_last_chunk", "runs_not_multiples_of_the_tile",
+])
+def test_wide_merge_path_partition_and_ties(case):
+    """Phase B of K3's wide route, emulated at tiles of 4 threads x 3
+    elements on the plan's chunks (each sorted by torch.sort in place of
+    the cluster kernel): after log2(chunks) passes every row equals
+    torch.sort's, bit for bit; no element is lost or doubled at a tile
+    edge, whatever the duplicates."""
+    x = torch.from_numpy(_wide_rows(case, np.random.default_rng(7)))
+    w = x.shape[1]
+    r = sort_cuda.wide_plan(w, 4)
+    rows = torch.cat([torch.sort(c, dim=1).values
+                      for c in torch.split(x, r.chunk_w, dim=1)], dim=1)
+    run = r.chunk_w
+    for _ in range(r.passes):
+        rows = _merge_pass(rows, run, threads=4, items=3)
+        run *= 2
+    assert torch.equal(rows, torch.sort(x, dim=1).values)
 
 
 def test_sort_route_constants_match_the_kernel_source():

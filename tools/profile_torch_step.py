@@ -39,6 +39,15 @@ digit totals and the first cluster barrier, with the wait for the
 slowest CTA), offsets, scatter, barrier (the end-of-pass cluster barrier
 and the next pass's reset) and store; mean and 90th percentile over the
 CTAs; and how many clusters of each size the card holds at once.
+
+``--wide-phases`` instead splits K3's wide route into its launches: for
+merge rows [384, 409600] and [384, 819200] and each number of chunks c in
+2, 4, ..., 64 whose chunks the cluster kernel holds, it runs the route on
+``sort_cuda.wide_plan(width, c)`` (checked against ``torch.sort``) with
+CUDA events around the chunk sort and each merge pass, and prints each
+launch's mean time over three runs, their sum, the same run's
+``torch.sort``, the byte bound and the design's floor (1 + log2 c times
+the bound). Its table is behind the chunk rule ``sort_cuda.WIDE_CHUNK``.
 """
 
 import ctypes
@@ -95,8 +104,9 @@ def sort_phases() -> None:
                    check=True, timeout=kernels.BUILD_TIMEOUT_S)
     lib = ctypes.CDLL(str(so))
     vp, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.attpc_sort_rows_cluster.argtypes = [vp, vp, i32, ctypes.c_int64,
-                                            i32, i32, vp]
+    i64 = ctypes.c_int64
+    lib.attpc_sort_rows_cluster.argtypes = [vp, vp, i32, i64, i32, i32, i64,
+                                            i32, i64, vp]
     lib.attpc_sort_phases.argtypes = [vp, ctypes.c_size_t]
     sim, vert, mom = chip_smoke.flagship_simulator("cuda")
     w, cap = sim.engine.point_budget * 100, sim.engine.uniq_budget
@@ -112,7 +122,7 @@ def sort_phases() -> None:
         def run():
             err = lib.attpc_sort_rows_cluster(
                 x.data_ptr(), out.data_ptr(), e, width, r.n_cta, r.chunk,
-                torch.cuda.current_stream().cuda_stream)
+                width, 1, width, torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"sort_rows_cluster failed ({err})")
 
@@ -154,6 +164,54 @@ def sort_phases() -> None:
         ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip())
+
+
+def wide_phases(reps: int = 3) -> None:
+    """K3's wide route by launch, for each number of chunks (see the
+    module doc)."""
+    from attpc_engine_tpu_torch.detector import sort_cuda
+
+    for w in (409600, 819200):
+        x = chip_smoke.sort_inputs(w, False)
+        ref = torch.sort(x, dim=1).values
+        library_ms = chip_smoke.cuda_ms(lambda: torch.sort(x, dim=1), reps)
+        bound_ms = chip_smoke.bound(2 * x.numel() * 8)["bound_ms"]
+        print(f"merge rows {list(x.shape)}: torch.sort {library_ms:.3f} ms, "
+              f"bound {bound_ms:.4f} ms; the rule gives "
+              f"{sort_cuda.route(w).chunks} chunks")
+        for c in (2, 4, 8, 16, 32, 64):
+            if -(-w // c) > 16 * sort_cuda.CTA_CAPACITY:
+                continue
+            plan = sort_cuda.wide_plan(w, c)
+            times: dict[str, float] = {}
+            for rep in range(reps + 1):  # the first run is warm-up
+                events = [torch.cuda.Event(enable_timing=True)]
+                labels = []
+
+                def mark(label):
+                    events.append(torch.cuda.Event(enable_timing=True))
+                    events[-1].record()
+                    labels.append(label)
+
+                events[0].record()
+                out = sort_cuda.sort_wide(x, plan, mark)
+                torch.cuda.synchronize()
+                if rep == 0:
+                    if not torch.equal(out, ref):
+                        raise AssertionError(f"wide route, {c} chunks: "
+                                             f"differs from torch.sort")
+                    continue
+                for i, label in enumerate(labels):
+                    times[label] = times.get(label, 0.0) + (
+                        events[i].elapsed_time(events[i + 1]) / reps)
+            del out
+            total = sum(times.values())
+            print(f"  c={c:2d} chunks of {plan.chunk_w} ({plan.n_cta} CTAs "
+                  f"of {plan.chunk}): total {total:.3f} ms = "
+                  + " + ".join(f"{k} {v:.3f}" for k, v in times.items())
+                  + f"; ratio to torch.sort {total / library_ms:.3f}; floor "
+                  f"{(1 + plan.passes) * bound_ms:.4f} ms")
+        del x, ref
 
 
 def transport_steps() -> None:
@@ -226,6 +284,10 @@ def main() -> int:
     if "--sort-phases" in args:
         print(f"card: {chip_smoke.card_line()}; K3 cluster route phases")
         sort_phases()
+        return 0
+    if "--wide-phases" in args:
+        print(f"card: {chip_smoke.card_line()}; K3 wide route by launch")
+        wide_phases()
         return 0
     if "--transport-steps" in args:
         print(f"card: {chip_smoke.card_line()}; K1 cycles per step")
