@@ -26,7 +26,10 @@
 // around the TPU's slow gathers; here K2 runs one thread per output key
 // (one cached gather, one coalesced store), and K6 and K7 one thread per
 // (point, x cell) row (one ix, ten iy, ten gathers along one table row, ten
-// consecutive outputs). The int32 table holds pad ids, no bit splitting.
+// consecutive outputs). K6 stages a warp's keys in shared memory and
+// stores them with 16-byte stores, each sector written once; K7 stores its
+// ten outputs one by one, so each store touches 40 sectors of which it
+// fills 4 B. The int32 table holds pad ids, no bit splitting.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -54,24 +57,41 @@ __global__ void packed_key_lookup_kernel(
   out[idx] = pad < kPadSentinel ? pad * pad_mult + __ldg(&tbr[p]) : sentinel;
 }
 
+constexpr int kThreads = 256;
+
 // One thread per (point, x cell) row r = p * 10 + i: the row's ten keys.
-__global__ void packed_key_lookup_rows_kernel(
+// Each warp stages its 32 rows' 320 keys in shared memory and stores them
+// as one contiguous run (out + r0 * 10, r0 a multiple of 32: 1,280-byte
+// aligned from the tensor's base) with 16-byte stores. The last warp of
+// the grid may hold fewer rows; n_rows = 10 P is even, so its keys, ten a
+// row, still fill whole 16-byte quads.
+__global__ void __launch_bounds__(kThreads) packed_key_lookup_rows_kernel(
     const int32_t* __restrict__ ix, const int32_t* __restrict__ iy,
     const int32_t* __restrict__ tbr, const int32_t* __restrict__ table,
     int32_t* __restrict__ out, int64_t n_rows, int pad_mult, int32_t sentinel) {
-  int64_t r = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= n_rows) return;
-  int64_t p = r / kMesh;
-  int x = min(max(__ldg(&ix[r]), 0), kNx - 1);
-  const int32_t* trow = table + x * kNy;
-  int32_t t = __ldg(&tbr[p]);
-  int32_t* o = out + r * kMesh;
+  __shared__ __align__(16) int32_t stage[kThreads * kMesh];
+  const int lane = threadIdx.x & 31;
+  const int64_t r0 = (int64_t)blockIdx.x * kThreads + (threadIdx.x & ~31);
+  if (r0 >= n_rows) return;  // the whole warp
+  int32_t* s = stage + (threadIdx.x & ~31) * kMesh;
+  const int64_t r = r0 + lane;
+  if (r < n_rows) {
+    int64_t p = r / kMesh;
+    int x = min(max(__ldg(&ix[r]), 0), kNx - 1);
+    const int32_t* trow = table + x * kNy;
+    int32_t t = __ldg(&tbr[p]);
 #pragma unroll
-  for (int j = 0; j < kMesh; ++j) {
-    int y = min(max(__ldg(&iy[p * kMesh + j]), 0), kNy - 1);
-    int pad = __ldg(&trow[y]);
-    o[j] = pad < kPadSentinel ? pad * pad_mult + t : sentinel;
+    for (int j = 0; j < kMesh; ++j) {
+      int y = min(max(__ldg(&iy[p * kMesh + j]), 0), kNy - 1);
+      int pad = __ldg(&trow[y]);
+      s[lane * kMesh + j] = pad < kPadSentinel ? pad * pad_mult + t : sentinel;
+    }
   }
+  __syncwarp();
+  const int quads = (n_rows - r0 < 32 ? (int)(n_rows - r0) : 32) * kMesh / 4;
+  const int4* s4 = reinterpret_cast<const int4*>(s);
+  int4* o4 = reinterpret_cast<int4*>(out + r0 * kMesh);
+  for (int k = lane; k < quads; k += 32) o4[k] = s4[k];
 }
 
 // The same row mapping, pad ids only.
@@ -91,8 +111,6 @@ __global__ void pad_lookup_kernel(const int32_t* __restrict__ ix,
     o[j] = __ldg(&trow[y]);
   }
 }
-
-constexpr int kThreads = 256;
 
 }  // namespace
 

@@ -53,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "radix_warp.cuh"
+
 namespace cg = cooperative_groups;
 
 // Built with -DATTPC_SORT_PHASES (tools/profile_torch_step.py --sort-phases),
@@ -94,23 +96,6 @@ constexpr int kMaxCluster = 16;
 constexpr int kMaxChunk = (kMaxShared - kFixedBytes) / 16;
 // elements a lane holds in registers during a pass
 constexpr int kItems = ((kMaxChunk + kWarps - 1) / kWarps + 31) / 32;
-
-// Lanes of the warp whose `digit` equals this lane's, among the lanes where
-// `valid` holds (0 where it does not). Every lane of the warp must call it.
-__device__ __forceinline__ unsigned match_digit(unsigned digit, bool valid) {
-  const unsigned peers = __match_any_sync(0xffffffffu, valid ? digit : 256u);
-  return valid ? peers : 0u;
-}
-
-// Inclusive sum of `v` over the lanes up to this one; the whole warp calls.
-__device__ __forceinline__ unsigned warp_inclusive_sum(unsigned v, int lane) {
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const unsigned t = __shfl_up_sync(0xffffffffu, v, o);
-    if (lane >= o) v += t;
-  }
-  return v;
-}
 
 // n elements from device memory to shared memory, bit 63 flipped; 16-byte
 // loads from the first 16-byte aligned element on.

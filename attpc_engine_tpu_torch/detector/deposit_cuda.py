@@ -12,8 +12,10 @@ them on the card is bytes: ~4.8 B moved per output key, 39.3 M keys at the
 flagship batch; the 1.43 MB pad-id table is gathered at random and stays
 in L2. K2 runs one thread per key (one cached gather, one coalesced
 store); K6 and K7 one thread per (point, x cell) row, ten gathers along one
-table row and ten consecutive stores. The TPU kernels' one-hot matrix
-products and bf16 table planes have no place here.
+table row. K6 stages each warp's 320 keys in shared memory and writes them
+as one contiguous 1,280-byte run with 16-byte stores; K7 stores its ten
+outputs one by one. The TPU kernels' one-hot matrix products and bf16
+table planes have no place here.
 
 ``attpc_deposit_rows`` (``csrc/deposit_rows.cu``) is the default step's
 (``merge="sorts"``, ``lookup="two_stage"``) deposit in one kernel: the

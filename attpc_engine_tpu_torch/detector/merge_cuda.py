@@ -1,42 +1,64 @@
 """K5 wrapper: the whole per-event merge of equal (pad, tb) keys.
 
-Kernels: K3 (``sort_cuda.sort_rows``, ``csrc/sort_cluster.cu``) for the first
-sort, then ``csrc/merge_fused.cu`` (``attpc_merge_tail``) for the rest.
-Together they replace the Pallas kernel
-``attpc_engine_tpu/detector/sort_pallas.py`` ``_merge_kernel``
-(merge_runs_fused_pallas) with the same contract: sort by (key, charge),
-f32 charge prefix, run-end mask, n_uniq, compaction of the run ends to
-``cap`` slots. What bounds it on the card is bytes: the sort's passes over
-the 1 MB int64 rows (K3), then one block per row that reads the sorted row
-twice and writes only the ``cap`` compacted slots. The TPU kernel's second
-bitonic sort becomes an in-order compaction, which gives the same output
-because the run ends are distinct and already ascending. The prefix
-associates as the TPU kernel's (``_cumsum_flat``), so the sums are its
-bits, not ``deposition._prefix_sum``'s (XLA's CPU cumsum); see the source.
+K5 replaces the Pallas kernel ``attpc_engine_tpu/detector/sort_pallas.py``
+``_merge_kernel`` (merge_runs_fused_pallas) with the same contract: sort by
+(key, charge), f32 charge prefix, run-end mask, n_uniq, compaction of the
+run ends to ``cap`` slots. What bounds it on the card is bytes: the keys and
+charges read once, the ``cap`` slots written once. It has two routes,
+chosen by ``route`` from the width alone before any launch:
+
+- **cluster** (``csrc/merge_cluster.cu``, ``attpc_merge_cluster``): rows of
+  at most 16 * ``sort_cuda.CTA_CAPACITY`` = 213,760 lanes (the flagship's
+  102,400 and its first overflow doubling, 204,800). One launch: a
+  thread-block cluster of the n_cta that ``sort_cuda`` gives the width
+  loads the row's live lanes (dead lanes, at ``KEY_SENTINEL``, are counted
+  and dropped), radix-sorts them in shared and distributed shared memory
+  and runs the prefix, the run ends and the compaction on chip.
+- **two_launch** (``pack64``, K3 ``sort_cuda.sort_rows``, then
+  ``csrc/merge_fused.cu`` ``attpc_merge_tail``): wider rows up to
+  ``fits_fused``'s 2^18 lanes. The tail kernel takes one block a row, reads
+  the sorted row twice and writes the ``cap`` slots.
+
+The TPU kernel's second bitonic sort becomes an in-order compaction, which
+gives the same output because the run ends are distinct and already
+ascending. The prefix associates as the TPU kernel's (``_cumsum_flat``),
+so the sums are its bits, not ``deposition._prefix_sum``'s (XLA's CPU
+cumsum); see the sources.
 
 ``merge_runs_fused`` takes ``merge_runs_fused_plain`` for CPU tensors and
 launches the kernels for CUDA tensors, raising where they cannot take
-them. ``launches`` counts launches of the tail kernel (K3 counts its own).
-``fits_fused`` is the JAX package's width rule (sort_pallas.fits_invmem):
-wider rows keep the sorts path, chosen by shape before any launch.
+them. ``launches_cluster`` counts launches of the cluster kernel,
+``launches_two_launch`` launches of the tail kernel (K3 counts its own),
+``launches`` their sum. ``fits_fused`` is the JAX package's width rule
+(sort_pallas.fits_invmem): wider rows keep the sorts path, chosen by shape
+before any launch.
 """
 
 from __future__ import annotations
 
+import ctypes
+from typing import NamedTuple
+
 import torch
 
 from .. import kernels
+from . import sort_cuda
 from .sort_cuda import pack64, sort_rows, sort_rows_plain, unpack64
 
 __all__ = [
     "merge_runs_fused",
     "merge_runs_fused_plain",
     "merge_runs_fused_cuda",
+    "merge_runs_two_launch",
     "merge_tail_plain",
     "merge_tail_cuda",
     "fits_fused",
+    "route",
+    "MergeRoute",
     "KEY_SENTINEL",
     "launches",
+    "launches_cluster",
+    "launches_two_launch",
 ]
 
 KEY_SENTINEL = 2**31 - 1
@@ -45,8 +67,50 @@ LANES = 128
 MAX_FUSED_TOTAL = 1 << 18
 # the tail kernel's shared memory holds 4,096 segment totals (csrc)
 MAX_TAIL_WIDTH = LANES * 4096
+# the cluster kernel (csrc/merge_cluster.cu): rows a 16-CTA cluster holds
+MAX_CLUSTER_WIDTH = sort_cuda.CLUSTER_SIZES[-1] * sort_cuda.CTA_CAPACITY
+# its CTAs: 28 warps, two 8-byte buffers of `chunk` elements and the fixed
+# tables (per-warp 16-bit digit counts, digit totals and offsets, 256 B)
+CLUSTER_THREADS = 896
+CLUSTER_FIXED_BYTES = (CLUSTER_THREADS // 32) * sort_cuda.DIGITS * 2 + (
+    2 * sort_cuda.DIGITS * 4 + 256)
 
 launches = 0
+launches_cluster = 0
+launches_two_launch = 0
+
+_schedulable: dict[int, int] = {}
+
+
+class MergeRoute(NamedTuple):
+    """How K5 merges rows of one width. "cluster": one cluster of ``n_cta``
+    CTAs a row, each loading ceil(width / n_cta) lanes into buffers of
+    ``chunk`` elements (a multiple of 128). "two_launch": pack64, K3 and
+    the tail kernel (``n_cta`` and ``chunk`` 0)."""
+
+    name: str
+    n_cta: int
+    chunk: int
+
+    @property
+    def shared_bytes(self) -> int:
+        """Dynamic shared memory of one CTA of the cluster kernel."""
+        return 16 * self.chunk + CLUSTER_FIXED_BYTES
+
+
+def route(width: int) -> MergeRoute:
+    """The route for merge rows of ``width`` lanes: the cluster kernel on
+    the cluster ``sort_cuda`` gives the width where 16 CTAs hold it, else
+    the two-launch route; raises past ``fits_fused``."""
+    w = int(width)
+    if w < 1 or not fits_fused(w):
+        raise ValueError(f"merge rows of {w} lanes are outside the fused "
+                         f"path's width (fits_fused)")
+    if w > MAX_CLUSTER_WIDTH:
+        return MergeRoute("two_launch", 0, 0)
+    n_cta = sort_cuda.route(w).n_cta
+    load = -(-w // n_cta)
+    return MergeRoute("cluster", n_cta, -(-load // LANES) * LANES)
 
 
 def fits_fused(width: int) -> bool:
@@ -119,7 +183,7 @@ def merge_runs_fused_plain(packed: torch.Tensor, qv: torch.Tensor, cap: int,
 def merge_tail_cuda(sorted_rows: torch.Tensor, cap: int, rank_bits: int):
     """Launch the tail kernel on sorted pack64 rows [E, W] (arguments and
     result as ``merge_tail_plain``)."""
-    global launches
+    global launches, launches_two_launch
     if sorted_rows.dim() != 2:
         raise ValueError(
             f"expected [E, W], got shape {tuple(sorted_rows.shape)}")
@@ -140,20 +204,69 @@ def merge_tail_cuda(sorted_rows: torch.Tensor, cap: int, rank_bits: int):
         rank_bits, kernels.stream(sorted_rows),
     )
     kernels.check(err, "merge_tail")
+    launches_two_launch += 1
     launches += 1
     return key2, c2, n_uniq
 
 
-def merge_runs_fused_cuda(packed: torch.Tensor, qv: torch.Tensor, cap: int,
-                          rank_bits: int):
-    """Launch K5 (K3, then the tail kernel); arguments as
-    ``merge_runs_fused_plain``."""
+def _require_merge(packed: torch.Tensor, qv: torch.Tensor) -> None:
     if packed.dim() != 2:
         raise ValueError(f"expected [E, W], got shape {tuple(packed.shape)}")
     kernels.require(packed, "packed", torch.int32)
     kernels.require(qv, "qv", torch.float32, tuple(packed.shape))
+
+
+def _require_schedulable(r: MergeRoute) -> None:
+    """Raise unless the card can run one cluster of ``r.n_cta`` CTAs of the
+    largest chunk; asked once per cluster size."""
+    if r.n_cta not in _schedulable:
+        n = ctypes.c_int(0)
+        chunk = -(-sort_cuda.CTA_CAPACITY // LANES) * LANES
+        err = kernels.library().attpc_merge_cluster_occupancy(
+            r.n_cta, chunk, ctypes.byref(n))
+        kernels.check(err, "merge_cluster occupancy")
+        _schedulable[r.n_cta] = n.value
+    if _schedulable[r.n_cta] < 1:
+        raise RuntimeError(f"the card cannot schedule a cluster of "
+                           f"{r.n_cta} CTAs with {r.shared_bytes} B of "
+                           f"shared memory each")
+
+
+def merge_runs_two_launch(packed: torch.Tensor, qv: torch.Tensor, cap: int,
+                          rank_bits: int):
+    """K5's two-launch route on rows of any width up to ``MAX_TAIL_WIDTH``:
+    pack64, K3, then the tail kernel; arguments as
+    ``merge_runs_fused_plain``."""
+    _require_merge(packed, qv)
     cap = min(cap, packed.shape[1])
     return merge_tail_cuda(sort_rows(pack64(packed, qv)), cap, rank_bits)
+
+
+def merge_runs_fused_cuda(packed: torch.Tensor, qv: torch.Tensor, cap: int,
+                          rank_bits: int):
+    """Launch K5 on the route ``route`` gives the width; arguments as
+    ``merge_runs_fused_plain``."""
+    global launches, launches_cluster
+    _require_merge(packed, qv)
+    e, w = packed.shape
+    cap = min(cap, w)
+    r = route(w)
+    if r.name == "two_launch":
+        return merge_runs_two_launch(packed, qv, cap, rank_bits)
+    _require_schedulable(r)
+    dev = packed.device
+    key2 = torch.empty((e, cap), dtype=torch.int32, device=dev)
+    c2 = torch.empty((e, cap), dtype=torch.float32, device=dev)
+    n_uniq = torch.empty((e,), dtype=torch.int32, device=dev)
+    n_seg_full = max(2 * LANES, 1 << (w - 1).bit_length()) // LANES
+    ptr = kernels.ptr
+    err = kernels.library().attpc_merge_cluster(
+        ptr(packed), ptr(qv), ptr(key2), ptr(c2), ptr(n_uniq), e, w,
+        r.n_cta, r.chunk, n_seg_full, cap, rank_bits, kernels.stream(packed))
+    kernels.check(err, "merge_cluster")
+    launches_cluster += 1
+    launches += 1
+    return key2, c2, n_uniq
 
 
 def merge_runs_fused(packed: torch.Tensor, qv: torch.Tensor, cap: int,

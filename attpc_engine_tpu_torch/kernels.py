@@ -12,7 +12,8 @@ built when a module is imported.
 The flags leave out ``--use_fast_math`` (IEEE ``logf``, ``sqrtf`` and
 division) and add ``-fmad=false``: the transport kernel must round like its
 plain PyTorch version, whose multiplies and adds are separate kernels, and
-the merge tail adds only, in the order of its plain version. The
+the merge tails (``merge_fused.cu``, ``merge_cluster.cu``) add only, in the
+order of their plain version. The
 deposit-rows kernel rounds each of its few f32 operations explicitly
 (``__fmul_rn``, ``__fadd_rn``), so it would not contract without the flag
 either. The other kernels do integer work only.
@@ -33,7 +34,7 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("transport.cu", "deposit.cu", "deposit_rows.cu", "sort_cluster.cu",
-           "merge_rows.cu", "merge_fused.cu")
+           "merge_rows.cu", "merge_fused.cu", "merge_cluster.cu")
 LIBRARY = "libattpc_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -134,11 +135,15 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.attpc_sort_rows_cluster_occupancy.argtypes = [
         i32, i32, ctypes.POINTER(i32)]
     lib.attpc_merge_tail.argtypes = [vp] * 4 + [i32, i64, i32, i32, vp]
+    lib.attpc_merge_cluster.argtypes = [vp] * 5 + [i32] * 7 + [vp]
+    lib.attpc_merge_cluster_occupancy.argtypes = [
+        i32, i32, ctypes.POINTER(i32)]
     for fn in (lib.attpc_packed_key_lookup,
                lib.attpc_packed_key_lookup_rows, lib.attpc_pad_lookup,
                lib.attpc_deposit_rows, lib.attpc_sort_rows_cluster,
                lib.attpc_sort_rows_cluster_occupancy,
-               lib.attpc_merge_rows_pass, lib.attpc_merge_tail):
+               lib.attpc_merge_rows_pass, lib.attpc_merge_tail,
+               lib.attpc_merge_cluster, lib.attpc_merge_cluster_occupancy):
         fn.restype = ctypes.c_int
     lib.attpc_error_string.argtypes = [i32]
     lib.attpc_error_string.restype = ctypes.c_char_p

@@ -20,11 +20,23 @@ Phases (each raises on failure, and nothing is caught):
    default batch and on synthetic points with every edge
    case), K2 pad lookup (393,216 points; bit-exact), K3 row sort
    ([384, 102400] and [384, 12288] int64; bit-exact), K6 one-stage lookup
-   (393,216 points; bit-exact against its plain version and K2), K7 pad ids
-   (393,216 points; bit-exact), K5 fused merge ([384, 102400], cap 12,288;
-   key2 and n_uniq exact, c2 bit-exact) on the flagship's own merge keys
-   (rank_bits 1, taken from a fused batch) and on synthetic keys
-   (rank_bits 2). K3 is held on each of its shapes and routes: synthetic
+   (393,216 points of random cells and one fewer, so that the last warp
+   holds fewer than 32 rows; and the flagship's own points, taken from a
+   fused batch; bit-exact against its plain version and K2), K7 pad ids
+   (393,216 points; bit-exact), K5 fused merge (key2 and n_uniq exact, c2
+   bit-exact; on the route ``merge_cuda.route`` gives the width, whose own
+   counter must count the launch; the cluster route, ``csrc/
+   merge_cluster.cu``, must allocate nothing but its outputs) on the
+   flagship's own merge keys ([384, 102400], rank_bits 1, taken from a
+   fused batch), on synthetic keys at [384, 102400] (rank_bits 2), at one
+   width for each cluster size (12,288, 25,600, 51,200 and 204,800 for 1,
+   2, 4 and 16 CTAs), at the route's widest rows [384, 213760] with a row
+   of sentinels only, a row with no sentinel, a row of one live lane and
+   cap 1,000 (below n_uniq, not a multiple of 128), at the width 100,003
+   (not a multiple of 128), and at [384, 250000] on the two-launch route
+   (pack64, K3, then ``csrc/merge_fused.cu``); each timed beside the
+   two-launch route on the same rows, with the rows' live share. K3 is held
+   on each of its shapes and routes: synthetic
    merge rows and the flagship's own merge rows (taken from a default
    batch) at [384, 102400] and convert rows at [384, 12288] on the cluster
    route (8 and 1 CTAs), the first overflow-retry doubling [384, 204800]
@@ -59,11 +71,12 @@ Phases (each raises on failure, and nothing is caught):
    well formed; eight events run on the card must agree with the same
    eight run on the CPU through the plain versions.
 4b. The fused configuration, ``EngineParams(merge="fused",
-   lookup="one_stage")``, over the same four batches at full width: K1, K3
-   (cluster route only), K5 and K6 must have been launched and K2 and the
-   deposit-rows kernel not; its first batch's merged cloud must equal the
-   default configuration's in every integer, with charges within rtol 1e-5
-   and a one-electron floor.
+   lookup="one_stage")``, over the same four batches at full width: K1, K5
+   on its cluster route (once a batch), K3 (once a batch, the convert sort,
+   cluster route only) and K6 must have been launched, and K5's two-launch
+   route, K2 and the deposit-rows kernel not; its first batch's merged
+   cloud must equal the default configuration's in every integer, with
+   charges within rtol 1e-5 and a one-electron floor.
 4e. The retry-width step: the default configuration at point_budget=4096,
    the budget ``run_simulation``'s overflow retry reaches after two
    doublings, over two batches (the first is warm-up): K1, the
@@ -72,6 +85,12 @@ Phases (each raises on failure, and nothing is caught):
    cluster route for the convert sort; the first batch's ``meta_i32`` and
    packed rows must equal, bit for bit, phase 4's first batch (point
    budget 1,024).
+4f. The fused configuration at point_budget=2500, whose merge rows of
+   250,000 lanes are past K5's cluster route, over two batches (the first is
+   warm-up): K5 on its two-launch route once a batch, with K3 on its wide
+   route for it and on its cluster route for the convert sort, K6 and K1;
+   the first batch's ``meta_i32`` and packed rows must equal phase 4b's
+   first batch bit for bit.
 4c. The pad-id entry point ``deposit_cuda.pad_lookup`` at 393,216 points:
    K7 must have been launched.
 4d. The key entry point ``deposit_cuda.packed_key_lookup`` at 393,216
@@ -79,7 +98,7 @@ Phases (each raises on failure, and nothing is caught):
 5. One JSON line of kernel results, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before each of 4, 4b, 4e, 4c and 4d and read
+Launch counts are set to 0 just before each of 4, 4b, 4e, 4f, 4c and 4d and read
 just after it. Exits non-zero, with no result line, where there is no CUDA
 device or no repository beside the script.
 """
@@ -127,9 +146,15 @@ KERNELS = {
                        "attpc_engine_tpu_torch/csrc/merge_rows.cu",
                        "attpc_engine_tpu/detector/sort_pallas.py:366",
                        "retry_width"),
-    "merge_fused": ("merge_cuda", "launches",
+    # K5: one cluster kernel on rows of at most 213,760 lanes
+    "merge_cluster": ("merge_cuda", "launches_cluster",
+                      "attpc_engine_tpu_torch/csrc/merge_cluster.cu",
+                      "attpc_engine_tpu/detector/sort_pallas.py:279", "fused"),
+    # K5's two-launch route on wider rows: pack64, K3, then the tail kernel
+    "merge_fused": ("merge_cuda", "launches_two_launch",
                     "attpc_engine_tpu_torch/csrc/merge_fused.cu",
-                    "attpc_engine_tpu/detector/sort_pallas.py:279", "fused"),
+                    "attpc_engine_tpu/detector/sort_pallas.py:279",
+                    "fused_wide"),
     "packed_key_lookup_rows": (
         "deposit_cuda", "launches_rows",
         "attpc_engine_tpu_torch/csrc/deposit.cu",
@@ -499,25 +524,56 @@ def check_deposit(sim, inputs, card: str) -> dict:
             "library_ms": None}
 
 
-def check_rows_lookup(sim, inputs, card: str) -> dict:
-    """K6 against its plain version and against K2, same inputs."""
+def flagship_lookup_inputs(sim_fused, vertices, momenta):
+    """The (ix, iy, tbr) that the first fused batch hands K6: the
+    flagship's own mesh cells, whose neighbouring pixels share cells."""
+    from attpc_engine_tpu_torch.detector import deposition
+
+    seen = []
+    real = deposition.packed_key_lookup_rows
+
+    def spy(ix, iy, tbr, *rest):
+        if not seen:
+            seen.append((ix.clone(), iy.clone(), tbr.clone()))
+        return real(ix, iy, tbr, *rest)
+
+    deposition.packed_key_lookup_rows = spy
+    try:
+        sim_fused.simulate_batch(vertices[:BATCH], momenta[:BATCH], seed=SEED,
+                                 assemble=False)
+    finally:
+        deposition.packed_key_lookup_rows = real
+    return seen[0]
+
+
+def check_rows_lookup(sim, inputs, label: str, card: str) -> dict:
+    """K6 against its plain version and against K2, same inputs; also at
+    one point fewer, so that P * 10 is not a multiple of 32 and the last
+    warp's run of keys is shorter than 320."""
     from attpc_engine_tpu_torch.detector import deposit_cuda
 
     ix, iy, tbr = inputs
     args = (ix, iy, tbr, sim.pad_table, 1, 2**31 - 1)
-    got = deposit_cuda.packed_key_lookup_rows_cuda(*args)
-    ref = deposit_cuda.packed_key_lookup_plain(*args)
-    n_bad = int((got != ref).sum())
-    n_bad_k2 = int((got != deposit_cuda.packed_key_lookup_cuda(*args)).sum())
-    if n_bad or n_bad_k2:
-        raise AssertionError(f"K6: {n_bad} keys differ from the plain "
-                             f"version, {n_bad_k2} from K2")
+    ragged = (ix[:-1], iy[:-1], tbr[:-1], *args[3:])
+    if (ragged[0].shape[0] * 10) % 32 == 0:
+        raise AssertionError("K6: the ragged point count is not ragged")
+    for a in (args, ragged):
+        got = deposit_cuda.packed_key_lookup_rows_cuda(*a)
+        ref = deposit_cuda.packed_key_lookup_plain(*a)
+        n_bad = int((got != ref).sum())
+        n_bad_k2 = int((got != deposit_cuda.packed_key_lookup_cuda(*a)).sum())
+        if n_bad or n_bad_k2:
+            raise AssertionError(f"K6, {label}, P = {a[0].shape[0]}: {n_bad} "
+                                 f"keys differ from the plain version, "
+                                 f"{n_bad_k2} from K2")
     ms = cuda_ms(lambda: deposit_cuda.packed_key_lookup_rows_cuda(*args), 20)
     k2_ms = cuda_ms(lambda: deposit_cuda.packed_key_lookup_cuda(*args), 20)
     plain_ms = cuda_ms(lambda: deposit_cuda.packed_key_lookup_plain(*args), 5)
     bnd = bound(lookup_bytes(ix.shape[0], True))
-    print(f"K6 one-stage lookup: P={ix.shape[0]}: bit-exact against the plain "
-          f"version and K2; kernel {ms:.3f} ms (K2 in the same run "
+    print(f"K6 one-stage lookup, {label}: P={ix.shape[0]} and "
+          f"{ix.shape[0] - 1}: "
+          f"bit-exact against the plain version and K2; kernel {ms:.3f} ms "
+          f"(K2 in the same run "
           f"{k2_ms:.3f} ms), plain {plain_ms:.3f} ms, bound "
           f"{bnd['bound_ms']:.4f} ms [{card}]")
     return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **bnd,
@@ -677,13 +733,59 @@ def synthetic_merge_inputs(width: int, cap: int, rank_bits: int):
     return packed, qv, cap, rank_bits
 
 
-def check_merge_fused(args, label: str, card: str) -> dict:
-    """K5 (K3 then the tail kernel) against its plain version (torch.sort
-    then the plain tail): key2 and n_uniq exact, c2 bit-exact."""
-    from attpc_engine_tpu_torch.detector import merge_cuda, sort_cuda
+def edge_merge_inputs(width: int, cap: int, rank_bits: int = 1):
+    """Synthetic merge rows (``synthetic_merge_inputs``) with a row of
+    sentinels only (row 0), a row with no sentinel (row 1) and a row with
+    one live lane (row 2)."""
+    packed, qv, cap, rank_bits = synthetic_merge_inputs(width, cap, rank_bits)
+    packed[0], qv[0] = 2**31 - 1, 0.0
+    packed[1] = torch.where(packed[1] == 2**31 - 1, 5 << rank_bits, packed[1])
+    qv[1] = torch.where(qv[1] == 0.0, 1.5, qv[1])
+    packed[2], qv[2] = 2**31 - 1, 0.0
+    packed[2, width // 3], qv[2, width // 3] = 7 << rank_bits, 2.5
+    return packed, qv, cap, rank_bits
+
+
+def merge_bound(e: int, w: int, cap: int) -> dict:
+    """K5's bound: packed and qv read, key2, c2 and n_uniq written; the
+    prefix's f32 additions: 7 lane steps and the segment offset per lane, a
+    Hillis-Steele step per segment and distance."""
+    n_seg = -(-w // 128)
+    n_bytes = e * w * 8 + e * cap * 8 + e * 4
+    f32_ops = e * (w * 8 + n_seg * max(1, (n_seg - 1).bit_length()))
+    return bound(n_bytes, f32_ops)
+
+
+def check_merge(args, label: str, expect: tuple, card: str) -> dict:
+    """K5 against its plain version (torch.sort then the plain tail) on the
+    route ``merge_cuda.route`` gives the width, which must be ``expect``
+    (name, n_cta): key2 and n_uniq exact, c2 bit-exact; the route's own
+    counter counts the launch; the cluster route allocates nothing but its
+    outputs (no [E, W] int64 rows). Timed beside the two-launch route
+    (pack64, K3, the tail kernel) on the same rows and the plain version."""
+    from attpc_engine_tpu_torch.detector import merge_cuda
 
     packed, qv, cap, rank_bits = args
+    e, w = packed.shape
+    r = merge_cuda.route(w)
+    if (r.name, r.n_cta) != expect:
+        raise AssertionError(f"K5 {label}: route {r}, expected {expect}")
+    counter = ("launches_cluster" if r.name == "cluster"
+               else "launches_two_launch")
+    before = getattr(merge_cuda, counter)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     got = merge_cuda.merge_runs_fused_cuda(*args)
+    extra = torch.cuda.max_memory_allocated() - allocated
+    if getattr(merge_cuda, counter) != before + 1:
+        raise AssertionError(f"K5 {label}: {counter} did not count the "
+                             f"launch")
+    c = min(cap, w)
+    outputs = e * c * 8 + e * 4
+    if r.name == "cluster" and extra > outputs + (1 << 20):
+        raise AssertionError(f"K5 {label}: allocated {extra} B, the outputs "
+                             f"are {outputs} B")
     ref = merge_cuda.merge_runs_fused_plain(*args)
     bad = [int((a.view(torch.int32) != b.view(torch.int32)).sum())
            for a, b in zip(got, ref)]
@@ -692,26 +794,22 @@ def check_merge_fused(args, label: str, card: str) -> dict:
                              f"{bad} places")
     if int(ref[2].max()) <= 0:
         raise AssertionError(f"K5 {label}: no runs at all")
+    del got
+    live = float((packed != 2**31 - 1).float().mean())
     ms = cuda_ms(lambda: merge_cuda.merge_runs_fused_cuda(*args), 10)
+    two_ms = cuda_ms(lambda: merge_cuda.merge_runs_two_launch(*args), 10)
     plain_ms = cuda_ms(lambda: merge_cuda.merge_runs_fused_plain(*args), 3)
-    rows = sort_cuda.sort_rows_cuda(sort_cuda.pack64(packed, qv))
-    tail_ms = cuda_ms(lambda: merge_cuda.merge_tail_cuda(rows, cap,
-                                                         rank_bits), 10)
-    e, w = packed.shape
-    n_seg = -(-w // 128)
-    # packed and qv read, key2, c2 and n_uniq written; the prefix's f32
-    # additions: 7 lane steps and the segment offset per lane, a
-    # Hillis-Steele step per segment and distance
-    n_bytes = e * w * 8 + e * cap * 8 + e * 4
-    f32_ops = e * (w * 8 + n_seg * max(1, (n_seg - 1).bit_length()))
-    bnd = bound(n_bytes, f32_ops)
-    print(f"K5 fused merge {label} [{e}, {w}] cap {cap} rank_bits "
-          f"{rank_bits}: key2 and n_uniq exact, c2 bit-exact (n_uniq "
-          f"{int(ref[2].min())}-{int(ref[2].max())}); kernel {ms:.3f} ms "
-          f"(of which the tail {tail_ms:.3f} ms), plain {plain_ms:.3f} ms, "
-          f"bound {bnd['bound_ms']:.4f} ms [{card}]")
+    bnd = merge_bound(e, w, c)
+    print(f"K5 fused merge, {label} [{e}, {w}] cap {cap} rank_bits "
+          f"{rank_bits}: route {r.name} ({r.n_cta} CTAs of {r.chunk}), "
+          f"{extra} B allocated; key2 and n_uniq exact, c2 bit-exact (n_uniq "
+          f"{int(ref[2].min())}-{int(ref[2].max())}, live share {live:.4f}); "
+          f"kernel {ms:.3f} ms, two-launch route {two_ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms [{card}]")
     return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **bnd,
-            "library_ms": None, "tail_ms": tail_ms}
+            "library_ms": None, "two_launch_ms": two_ms, "live_share": live,
+            "k5_route": r.name, "n_cta": r.n_cta, "chunk": r.chunk,
+            "width": w, "cap": c, "allocated_bytes": extra}
 
 
 def check_rows(sim, out, n_events: int) -> int:
@@ -739,17 +837,23 @@ CLOUD_INTEGERS = ("pads", "tbs_i", "labels", "events", "cloud_valid",
                   "counts", "n_points", "uniq_overflow", "pool_overflow",
                   "uniq_max")
 RETRY_POINT_BUDGET = 4096  # run_simulation's second doubling of 1,024
+# a point budget whose fused merge rows (250,000 lanes) are wider than K5's
+# cluster route takes and within fits_fused's 2^18
+FUSED_WIDE_POINT_BUDGET = 2500
 
 
 def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
-              card: str, wide_per_batch: int = 0) -> dict:
+              card: str, wide_per_batch: int = 0,
+              per_batch: dict | None = None) -> dict:
     """The batches of ``vertices`` through simulate_batch + host assembly,
     launch counts set to 0 just before and read just after; the device
     step of every batch but the first is timed (dispatch until the
     metadata reached the host). K3 must take its wide route
     ``wide_per_batch`` times a batch (0 at the flagship's widths) and its
-    cluster route at least once. Returns the counts, the timing and the
-    first batch's merged cloud, meta_i32 and packed rows."""
+    cluster route at least once; each kernel named in ``per_batch`` must
+    have been launched exactly that many times a batch. Returns the counts,
+    the timing and the first batch's merged cloud, meta_i32 and packed
+    rows."""
     from attpc_engine_tpu_torch.detector.simulator import overflow_kinds
 
     step_s, asm_s, rows, first = [], [], 0, None
@@ -792,6 +896,11 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
     if k3["cluster"] == 0 or k3["wide"] != wide_per_batch * len(step_s):
         raise AssertionError(f"{label}: K3 by route {k3}, expected the "
                              f"wide route {wide_per_batch} times a batch")
+    off = {k: launches[k] for k, n in (per_batch or {}).items()
+           if launches[k] != n * len(step_s)}
+    if off:
+        raise AssertionError(f"{label}: launches {off} over {len(step_s)} "
+                             f"batches, expected {per_batch} a batch")
     timed = step_s[1:]  # the first batch is warm-up
     ms = 1e3 * float(np.mean(timed))
     print(f"{label} path: {len(step_s)} batches of {BATCH} events, {rows} rows;"
@@ -804,16 +913,18 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
             "events_per_s": BATCH / float(np.mean(timed)), "first": first}
 
 
-def compare_retry_width(flagship_first: dict, retry_first: dict) -> None:
-    """Phase 4e's first batch (point budget 4,096) against phase 4's (1,024):
-    meta_i32 and the packed rows bit for bit, since the padding lanes of
-    the wider merge rows sort last and add nothing."""
-    if not (np.array_equal(retry_first["meta_i32"], flagship_first["meta_i32"])
-            and torch.equal(retry_first["packed"], flagship_first["packed"])):
-        raise AssertionError("retry width: meta_i32 or packed rows differ "
-                             "from the point-budget-1,024 batch")
-    print(f"retry width vs default, first batch: meta_i32 and "
-          f"{len(retry_first['packed'])} packed rows bit-identical")
+def compare_wider(label: str, flagship_first: dict, wide_first: dict) -> None:
+    """A wider point budget's first batch against the flagship budget's
+    (1,024) in the same configuration: meta_i32 and the packed rows bit for
+    bit, since the padding lanes of the wider merge rows sort last and add
+    nothing (in the fused merge, a step of the segment scan that the wider
+    row adds adds 0.0 to every live segment)."""
+    if not (np.array_equal(wide_first["meta_i32"], flagship_first["meta_i32"])
+            and torch.equal(wide_first["packed"], flagship_first["packed"])):
+        raise AssertionError(f"{label}: meta_i32 or packed rows differ from "
+                             f"the point-budget-1,024 batch")
+    print(f"{label} vs point budget 1,024, first batch: meta_i32 and "
+          f"{len(wide_first['packed'])} packed rows bit-identical")
 
 
 def compare_clouds(default: dict, fused: dict, gain: float) -> None:
@@ -936,28 +1047,57 @@ def main() -> int:
         "deposit": check_deposit(sim, inputs, card),
         "sort_rows": sorts["merge"],
         "sort_rows_wide": sorts["wide"],
-        "packed_key_lookup_rows": check_rows_lookup(sim, inputs, card),
+        "packed_key_lookup_rows": check_rows_lookup(
+            sim, inputs, "random cells", card),
         "pad_lookup": check_pad_lookup(sim, inputs, card),
-        "merge_fused": check_merge_fused(
-            flagship_merge_inputs(sim_fused, vertices, momenta),
-            "flagship keys", card),
     }
-    synthetic = check_merge_fused(synthetic_merge_inputs(w, cap, 2),
-                                  "synthetic keys", card)
+    from attpc_engine_tpu_torch.detector.sort_cuda import CTA_CAPACITY
+
+    def synthetic_merge(width, label, expect, rank_bits=1):
+        return check_merge(synthetic_merge_inputs(width, cap, rank_bits),
+                           label, expect, card)
+
+    merges = {
+        "flagship": check_merge(
+            flagship_merge_inputs(sim_fused, vertices, momenta),
+            "flagship keys", ("cluster", 8), card),
+        "synthetic": synthetic_merge(w, "synthetic keys", ("cluster", 8), 2),
+        "ctas_1": synthetic_merge(cap, "one CTA", ("cluster", 1)),
+        "ctas_2": synthetic_merge(w // 4, "two CTAs", ("cluster", 2)),
+        "ctas_4": synthetic_merge(w // 2, "four CTAs", ("cluster", 4)),
+        "ctas_16": synthetic_merge(2 * w, "first overflow-retry width",
+                                   ("cluster", 16)),
+        "edge": check_merge(
+            edge_merge_inputs(16 * CTA_CAPACITY, 1000),
+            "the route's widest rows, with rows of sentinels only, of no "
+            "sentinel and of one live lane, cap below n_uniq",
+            ("cluster", 16), card),
+        "odd_width": synthetic_merge(100_003, "width not a multiple of 128",
+                                     ("cluster", 8)),
+        "two_launch": synthetic_merge(FUSED_WIDE_POINT_BUDGET * 100,
+                                      "rows past the cluster route",
+                                      ("two_launch", 0)),
+    }
+    k6_flagship = check_rows_lookup(
+        sim, flagship_lookup_inputs(sim_fused, vertices, momenta),
+        "flagship points", card)
+    res["merge_cluster"] = merges["flagship"]
+    res["merge_fused"] = merges["two_launch"]
 
     ix, iy, tbr = inputs
     table = sim.pad_table
     paths = {
         "default": main_path(sim, vertices, momenta, "default",
                              ("transport", "deposit_rows", "sort_rows"),
-                             ("deposit", "merge_fused",
+                             ("deposit", "merge_cluster", "merge_fused",
                               "packed_key_lookup_rows", "pad_lookup",
                               "sort_rows_wide"), card),
         "fused": main_path(sim_fused, vertices, momenta, "fused",
-                           ("transport", "sort_rows", "merge_fused",
+                           ("transport", "sort_rows", "merge_cluster",
                             "packed_key_lookup_rows"),
                            ("deposit", "deposit_rows", "pad_lookup",
-                            "sort_rows_wide"), card),
+                            "sort_rows_wide", "merge_fused"), card,
+                           per_batch={"merge_cluster": 1, "sort_rows": 1}),
         "pad_lookup": entry_point_path(
             "pad_lookup",
             lambda: deposit_cuda.pad_lookup(ix, iy, table), card),
@@ -972,11 +1112,22 @@ def main() -> int:
     paths["retry_width"] = main_path(
         sim_retry, vertices[:2 * BATCH], momenta[:2 * BATCH], "retry-width",
         ("transport", "deposit_rows", "sort_rows", "sort_rows_wide"),
-        ("deposit", "merge_fused", "packed_key_lookup_rows", "pad_lookup"),
-        card, wide_per_batch=2)
+        ("deposit", "merge_cluster", "merge_fused", "packed_key_lookup_rows",
+         "pad_lookup"), card, wide_per_batch=2)
     del sim_retry
-    compare_retry_width(paths["default"]["first"],
-                        paths["retry_width"]["first"])
+    sim_fused_wide, _, _ = flagship_simulator(
+        "cuda", point_budget=FUSED_WIDE_POINT_BUDGET, **fused_cfg)
+    paths["fused_wide"] = main_path(
+        sim_fused_wide, vertices[:2 * BATCH], momenta[:2 * BATCH],
+        "fused wide", ("transport", "sort_rows", "sort_rows_wide",
+                       "merge_fused", "packed_key_lookup_rows"),
+        ("deposit", "deposit_rows", "pad_lookup", "merge_cluster"), card,
+        wide_per_batch=1, per_batch={"merge_fused": 1, "sort_rows": 2})
+    del sim_fused_wide
+    compare_wider("retry width", paths["default"]["first"],
+                  paths["retry_width"]["first"])
+    compare_wider("fused wide", paths["fused"]["first"],
+                  paths["fused_wide"]["first"])
     compare_clouds(paths["default"]["first"], paths["fused"]["first"],
                    float(sim.config.det_params.mpgd_gain))
     check_against_cpu(sim, vertices, momenta)
@@ -1006,10 +1157,16 @@ def main() -> int:
                        synthetic_before_ms=deposit_rows["synthetic"][
                            "before_ms"],
                        aten_division=division)
-        if name == "merge_fused":
-            row.update(synthetic_ms=synthetic["ms"],
-                       synthetic_plain_ms=synthetic["plain_ms"],
-                       synthetic_tail_ms=synthetic["tail_ms"])
+        if name == "packed_key_lookup_rows":
+            row.update(flagship_ms=k6_flagship["ms"],
+                       flagship_k2_ms_same_run=k6_flagship["k2_ms_same_run"],
+                       flagship_plain_ms=k6_flagship["plain_ms"],
+                       flagship_bound_ms=k6_flagship["bound_ms"])
+        if name in ("merge_cluster", "merge_fused"):
+            row["cases"] = {key: {k: v[k] for k in (
+                "width", "cap", "k5_route", "n_cta", "chunk", "live_share",
+                "ms", "two_launch_ms", "plain_ms", "bound_ms",
+                "allocated_bytes")} for key, v in merges.items()}
         rows.append(row)
     print(json.dumps({
         "kernels": rows,
@@ -1018,6 +1175,7 @@ def main() -> int:
         "fused_path_ms_per_batch": paths["fused"]["ms_per_batch"],
         "fused_events_per_s": paths["fused"]["events_per_s"],
         "retry_width_path_ms_per_batch": paths["retry_width"]["ms_per_batch"],
+        "fused_wide_path_ms_per_batch": paths["fused_wide"]["ms_per_batch"],
         "card": card}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

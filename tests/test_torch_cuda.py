@@ -8,8 +8,8 @@ the JAX package (the card's Python needs neither jax nor h5py for it):
 
 Bounds: K1 alive flags exact, positions within 1e-6 m, |dKE| within
 1e-4 MeV (tests/test_transport_pallas.py); K2, K3 (both routes), K6, K7
-and the deposit-rows kernel bit-exact; K5 key2 and n_uniq exact and c2
-bit-exact. A wrapper given a
+and the deposit-rows kernel bit-exact; K5 (both routes) key2 and n_uniq
+exact and c2 bit-exact. A wrapper given a
 CUDA tensor it cannot take raises: nothing falls back.
 """
 
@@ -356,6 +356,124 @@ def test_fused_merge_kernel_matches_plain(cuda_device, e, w, cap, rank_bits):
     assert torch.equal(got[0], ref[0]) and torch.equal(got[2], ref[2])
     assert torch.equal(got[1].view(torch.int32), ref[1].view(torch.int32))
     assert int(got[2][1]) == 0 and int(got[2][0]) > 0
+
+
+@pytest.mark.parametrize("p", [1, 3, 5003, 40_001])
+def test_rows_lookup_kernel_ragged_points(cuda_device, p):
+    """K6's staged 16-byte stores where P * 10 is not a multiple of 32 (the
+    last warp holds fewer than 32 rows): bit-exact against its plain
+    version and K2."""
+    sim, _, _ = _simulator(cuda_device)
+    rng = np.random.default_rng(p)
+    ix = rng.integers(-5, 565, (p, 10)).astype(np.int32)
+    iy = rng.integers(-5, 645, (p, 10)).astype(np.int32)
+    tbr = rng.integers(0, 1024, p).astype(np.int32)
+    args = [torch.from_numpy(a).to(cuda_device) for a in (ix, iy, tbr)]
+    before = deposit_cuda.launches_rows
+    got = deposit_cuda.packed_key_lookup_rows(*args, sim.pad_table, 1, SENT)
+    assert deposit_cuda.launches_rows == before + 1
+    assert torch.equal(got, deposit_cuda.packed_key_lookup_plain(
+        *args, sim.pad_table, 1, SENT))
+    assert torch.equal(got, deposit_cuda.packed_key_lookup_cuda(
+        *args, sim.pad_table, 1, SENT))
+
+
+def _merge_edge_rows(w: int, rank_bits: int):
+    """Merge rows [6, w]: sentinels only (0), no sentinel (1), one live
+    lane (2), runs of ~w / 20 equal keys across every CTA boundary (3),
+    and rows with 30 % dead lanes and whole charges, so that equal (key,
+    charge) elements occur (4, 5)."""
+    rng = np.random.default_rng(w)
+    e = 6
+    space = rng.integers(0, max(1, w // 4), (e, w)).astype(np.int32)
+    space[3] = rng.integers(0, 20, w)
+    packed = (space << rank_bits) | rng.integers(
+        0, 1 << rank_bits, (e, w)).astype(np.int32)
+    qv = np.floor(rng.uniform(0.0, 300.0, (e, w))).astype(np.float32)
+    dead = rng.random((e, w)) < 0.3
+    dead[0] = True
+    dead[1] = False
+    dead[2] = True
+    dead[2, w // 2] = False
+    packed[dead] = SENT
+    qv[dead] = 0.0
+    return packed, qv
+
+
+@pytest.mark.parametrize("w,n_cta", [
+    (1, 1), (700, 1), (12289, 1), (25600, 2), (51200, 4), (100003, 8),
+    (204800, 16), (213760, 16),
+])
+def test_cluster_merge_kernel_edge_cases(cuda_device, w, n_cta):
+    """K5's cluster route against its plain version at each cluster size:
+    key2 and n_uniq exact, c2 bit-exact; rows of sentinels only, of no
+    sentinel (the widest fills 16 CTAs of 13,440), of one live lane, runs
+    across CTA boundaries, widths not multiples of 128, a cap below n_uniq
+    that is not a multiple of 128 and the cap 12,288; one launch a call,
+    counted on its route."""
+    assert merge_cuda.route(w)[:2] == ("cluster", n_cta)
+    for cap, rank_bits in ((100, 2), (12288, 1)):
+        packed, qv = _merge_edge_rows(w, rank_bits)
+        args = (torch.from_numpy(packed).to(cuda_device),
+                torch.from_numpy(qv).to(cuda_device), cap, rank_bits)
+        before = (merge_cuda.launches_cluster, merge_cuda.launches_two_launch)
+        got = merge_cuda.merge_runs_fused(*args)
+        after = (merge_cuda.launches_cluster, merge_cuda.launches_two_launch)
+        assert (after[0] - before[0], after[1] - before[1]) == (1, 0)
+        ref = merge_cuda.merge_runs_fused_plain(*args)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[2], ref[2])
+        assert torch.equal(got[1].view(torch.int32), ref[1].view(torch.int32))
+        assert int(got[2][0]) == 0 and int(got[2][2]) == 1
+
+
+def test_merge_routes_by_width(cuda_device):
+    """Rows past 16 x 13,360 lanes take the two-launch route (pack64, K3 on
+    its wide route, the tail kernel), bit-exact; the cluster route raises
+    on what it cannot take."""
+    packed, qv = _merge_edge_rows(250_000, 1)
+    args = (torch.from_numpy(packed[:3]).to(cuda_device),
+            torch.from_numpy(qv[:3]).to(cuda_device), 12288, 1)
+    before = (merge_cuda.launches_cluster, merge_cuda.launches_two_launch)
+    got = merge_cuda.merge_runs_fused(*args)
+    after = (merge_cuda.launches_cluster, merge_cuda.launches_two_launch)
+    assert (after[0] - before[0], after[1] - before[1]) == (0, 1)
+    ref = merge_cuda.merge_runs_fused_plain(*args)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[2], ref[2])
+    assert torch.equal(got[1].view(torch.int32), ref[1].view(torch.int32))
+    with pytest.raises(ValueError):
+        merge_cuda.merge_runs_fused(args[0].long(), *args[1:])
+
+
+def test_fused_step_builds_no_int64_merge_rows(cuda_device, monkeypatch):
+    """The fused step's K5 call runs the cluster kernel on its int32 keys
+    and f32 charges: no pack64, and nothing allocated but its outputs (an
+    [E, W] int64 buffer would be 8 x 102,400 x 8 B)."""
+    sim, vert, mom = _simulator(cuda_device, n_time_steps=1000,
+                                events_per_batch=8, merge="fused",
+                                lookup="one_stage")
+
+    def no_pack64(*args):
+        raise AssertionError("pack64 on K5's cluster route")
+
+    monkeypatch.setattr(merge_cuda, "pack64", no_pack64)
+    seen = []
+    real = deposition.merge_runs_fused
+
+    def spy(packed, qv, cap, rank_bits):
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = real(packed, qv, cap, rank_bits)
+        seen.append((torch.cuda.max_memory_allocated() - allocated,
+                     packed.shape, cap))
+        return out
+
+    monkeypatch.setattr(deposition, "merge_runs_fused", spy)
+    before = merge_cuda.launches_cluster
+    sim.simulate_batch(vert[:8], mom[:8], seed=1, assemble=False)
+    assert merge_cuda.launches_cluster == before + 1
+    (extra, (e, w), cap), = seen
+    assert extra <= e * cap * 8 + e * 4 + (1 << 20) < e * w * 8
 
 
 def test_step_on_card_agrees_with_cpu(cuda_device):

@@ -17,6 +17,10 @@ deposit rows built as they were before the rows kernel
 (``deposition.deposit_rows_plain`` with K2 as its lookup: the mesh and
 charges in PyTorch passes, K2, the mask and pack64), so the
 ``deposit_rows`` span of the two runs compares the two ways on one card.
+With ``--fused`` the K5 span (``merge_fused``) names the route K5 took
+(``merge_cuda.route``), and the step's kernel device time, idle share and
+launch count are printed beside ``FUSED_BEFORE``, the same profile of the
+fused step when K5 was ``pack64``, K3 and the tail kernel on every width.
 
 ``--transport-steps`` instead builds K1 (``csrc/transport.cu``) with
 ``-DATTPC_K1_STEPS``, runs one 500-step window of the flagship batch's 768
@@ -82,6 +86,12 @@ STAGES = {
     (simulator, "deposit_and_merge"): "deposit_and_merge",
     (simulator, "sort_rows"): "convert_sort",
 }
+
+
+# this profile of the fused step with K5 as pack64, K3 and the tail kernel
+# (PERF.md section 5), NVIDIA H100 80GB HBM3, 700.00 W
+FUSED_BEFORE = ("kernel device time 12.179 ms, idle share 0.494, 594 "
+                "launches, merge_fused span 4.127 ms")
 
 
 def _ranged(name, fn):
@@ -344,7 +354,22 @@ def main() -> int:
     for e in kern[:15]:
         print(f"  {e.self_device_time_total / 1e3:9.3f} {e.count:6d}  "
               f"{e.key[:90]}")
-    print(f"kernel launches in the step: {sum(e.count for e in kern)}")
+    print("the port's own kernels (csrc/*.cu; ms, launches):")
+    own = "(anonymous namespace)::"  # csrc's kernels; PyTorch's start "void"
+    for e in kern:
+        if e.key.startswith(own):
+            print(f"  {e.self_device_time_total / 1e3:9.3f} {e.count:6d}  "
+                  f"{e.key[len(own):][:60]}")
+    n_launches = sum(e.count for e in kern)
+    print(f"kernel launches in the step: {n_launches}")
+    if fused:
+        from attpc_engine_tpu_torch.detector import merge_cuda
+
+        w = sim.engine.point_budget * 100
+        print(f"fused step: K5 route {merge_cuda.route(w)} at width {w}; "
+              f"kernel device time {dev_us / 1e3:.3f} ms, idle share "
+              f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}, {n_launches} "
+              f"launches; before the cluster route: {FUSED_BEFORE}")
     if args:
         prof.export_chrome_trace(args[0])
     return 0
