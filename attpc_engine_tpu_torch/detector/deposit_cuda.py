@@ -9,13 +9,21 @@ Pallas kernel ``attpc_engine_tpu/detector/deposit_pallas.py``
 packing, in two machine mappings, as on the TPU. ``attpc_pad_lookup`` (K7)
 replaces ``_lookup_kernel`` (pad_lookup_pallas): pad ids only. What bounds
 them on the card is bytes: ~4.8 B moved per output key, 39.3 M keys at the
-flagship batch; the 1.43 MB pad-id table is gathered at random and stays
-in L2. K2 runs one thread per key (one cached gather, one coalesced
-store); K6 and K7 one thread per (point, x cell) row, ten gathers along one
-table row. K6 stages each warp's 320 keys in shared memory and writes them
-as one contiguous 1,280-byte run with 16-byte stores; K7 stores its ten
-outputs one by one. The TPU kernels' one-hot matrix products and bf16
-table planes have no place here.
+flagship batch; the 1.43 MB pad-id table is gathered one int32 a key and
+stays in L2, whose sector traffic sets the pace on random cells (32
+sectors a warp gather) but not on a step's points, whose neighbouring
+pixels share cells. K2 and K7 are one kernel, K7 without the key: each
+thread owns one quad of 4 consecutive keys, loads its point's indices
+once through L1 (7 loads for 4 keys where one thread a key loaded 12),
+gathers four pad ids and writes one 16-byte store, so that a warp writes
+512 contiguous bytes and every sector once; the quads at y cells 8, 9 and
+0, 1 straddle two x rows. The kernel keeps no shared memory, leaving L1
+to the table. Their index arithmetic is 32-bit, so their wrappers refuse
+P * 100 >= 2**31 (``require_int32_keys``). K6 runs one thread per (point,
+x cell) row, ten gathers along one table row, and stages each warp's 320
+keys in shared memory for one contiguous 1,280-byte run of 16-byte
+stores. The TPU kernels' one-hot matrix products and bf16 table planes
+have no place here.
 
 ``attpc_deposit_rows`` (``csrc/deposit_rows.cu``) is the default step's
 (``merge="sorts"``, ``lookup="two_stage"``) deposit in one kernel: the
@@ -57,12 +65,26 @@ __all__ = [
     "launches_pad_lookup",
     "deposit_rows_cuda",
     "launches_deposit_rows",
+    "MAX_POINTS",
+    "require_int32_keys",
 ]
 
 launches = 0  # K2
 launches_rows = 0  # K6
 launches_pad_lookup = 0  # K7
 launches_deposit_rows = 0  # the deposit-rows kernel
+
+# the most points whose P * 100 keys K2 and K7 index in int32
+MAX_POINTS = (2**31 - 1) // 100
+
+
+def require_int32_keys(p: int) -> None:
+    """Raise unless the P * 100 keys of ``p`` points have int32 indices,
+    as K2 and K7 compute them."""
+    if p > MAX_POINTS:
+        raise ValueError(f"{p} points: K2 and K7 index their P * 100 keys "
+                         f"in int32, so P * 100 < 2**31 (at most "
+                         f"{MAX_POINTS} points)")
 
 
 def packed_key_lookup_plain(
@@ -119,6 +141,7 @@ def packed_key_lookup_cuda(ix, iy, tbr, table, rank_bits: int,
                            sentinel: int) -> torch.Tensor:
     """Launch K2 (arguments as ``packed_key_lookup_plain``)."""
     global launches
+    require_int32_keys(ix.shape[0])
     out = _launch_packed("attpc_packed_key_lookup", ix, iy, tbr, table,
                          rank_bits, sentinel)
     launches += 1
@@ -169,6 +192,7 @@ def pad_lookup_plain(ix: torch.Tensor, iy: torch.Tensor,
 def pad_lookup_cuda(ix, iy, table) -> torch.Tensor:
     """Launch K7 (arguments as ``pad_lookup_plain``)."""
     global launches_pad_lookup
+    require_int32_keys(ix.shape[0])
     p = _require_lookup(ix, iy, table)
     out = torch.empty((p, 10, 10), dtype=torch.int32, device=ix.device)
     ptr = kernels.ptr

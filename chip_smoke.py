@@ -18,15 +18,17 @@ Phases (each raises on failure, and nothing is caught):
    (the default step's mesh, lookup and charges in one kernel; bit-exact
    against its plain version, on the flagship's own points taken from a
    default batch and on synthetic points with every edge
-   case), K2 pad lookup (393,216 points; bit-exact), K3 row sort
-   ([384, 102400] and [384, 12288] int64; bit-exact), K6 one-stage lookup
-   (393,216 points of random cells and one fewer, so that the last warp
-   holds fewer than 32 rows; and the flagship's own points, taken from a
-   fused batch; bit-exact against its plain version and K2), K7 pad ids
-   (393,216 points; bit-exact), K5 fused merge (key2 and n_uniq exact, c2
-   bit-exact; on the route ``merge_cuda.route`` gives the width, whose own
-   counter must count the launch; the cluster route, ``csrc/
-   merge_cluster.cu``, must allocate nothing but its outputs) on the
+   case), K2 pad lookup (393,216 points of random cells and one fewer, so
+   that the last block holds fewer quads than threads; and the flagship's
+   own points, taken from a fused batch; bit-exact, one launch a call), K3
+   row sort ([384, 102400] and [384, 12288] int64; bit-exact), K6 one-stage
+   lookup (393,216 points of random cells and one fewer, so that the last
+   warp holds fewer than 32 rows; and the flagship's own points;
+   bit-exact against its plain version and K2), K7 pad ids (the same
+   inputs as K2; bit-exact, one launch a call), K5 fused merge (key2 and
+   n_uniq exact, c2 bit-exact; on the route ``merge_cuda.route`` gives the
+   width, whose own counter must count the launch; the cluster route,
+   ``csrc/merge_cluster.cu``, must allocate nothing but its outputs) on the
    flagship's own merge keys ([384, 102400], rank_bits 1, taken from a
    fused batch), on synthetic keys at [384, 102400] (rank_bits 2), at one
    width for each cluster size (12,288, 25,600, 51,200 and 204,800 for 1,
@@ -77,6 +79,15 @@ Phases (each raises on failure, and nothing is caught):
    route, K2 and the deposit-rows kernel not; its first batch's merged
    cloud must equal the default configuration's in every integer, with
    charges within rtol 1e-5 and a one-electron floor.
+4g. The fused two-stage configuration, ``EngineParams(merge="fused",
+   lookup="two_stage")``, the port's counterpart of the JAX package's
+   ``pallas_sort="fused"`` with its default two-stage lookup, over the
+   same four batches at full width: K1 must have been launched, K2, K5 on
+   its cluster route and K3 (the convert sort, cluster route only) once a
+   batch each, and K6, K7, the deposit-rows kernel, K5's two-launch
+   route and K3's wide route not; its first batch's ``meta_i32`` and
+   packed rows must equal phase 4b's first batch bit for bit (K2 and K6
+   share one contract).
 4e. The retry-width step: the default configuration at point_budget=4096,
    the budget ``run_simulation``'s overflow retry reaches after two
    doublings, over two batches (the first is warm-up): K1, the
@@ -98,9 +109,9 @@ Phases (each raises on failure, and nothing is caught):
 5. One JSON line of kernel results, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before each of 4, 4b, 4e, 4f, 4c and 4d and read
-just after it. Exits non-zero, with no result line, where there is no CUDA
-device or no repository beside the script.
+Launch counts are set to 0 just before each of 4, 4b, 4g, 4e, 4f, 4c and
+4d and read just after it. Exits non-zero, with no result line, where there
+is no CUDA device or no repository beside the script.
 """
 
 import json
@@ -137,7 +148,7 @@ KERNELS = {
     "deposit": ("deposit_cuda", "launches",
                 "attpc_engine_tpu_torch/csrc/deposit.cu",
                 "attpc_engine_tpu/detector/deposit_pallas.py:210",
-                "packed_key_lookup"),
+                "fused_two_stage"),
     "sort_rows": ("sort_cuda", "launches",
                   "attpc_engine_tpu_torch/csrc/sort_cluster.cu",
                   "attpc_engine_tpu/detector/sort_pallas.py:366", "default"),
@@ -503,23 +514,44 @@ def check_deposit_rows(args: tuple, label: str, card: str) -> dict:
             "library_ms": None, "before_ms": before_ms}
 
 
-def check_deposit(sim, inputs, card: str) -> dict:
-    """K2 against packed_key_lookup_plain at P = 384 * 1024 points."""
+def check_lookup(name: str, counter: str, kernel, plain, points: tuple,
+                 rest: tuple, label: str) -> None:
+    """``kernel(*points, *rest)`` (K2's or K7's launch) against ``plain``,
+    and the same with the per-point tensors ``points`` less their last
+    point (393,215 points leave the last block ragged): bit for bit,
+    one launch a call."""
+    from attpc_engine_tpu_torch.detector import deposit_cuda
+
+    for pts in (points, tuple(x[:-1] for x in points)):
+        a = (*pts, *rest)
+        before = getattr(deposit_cuda, counter)
+        got = kernel(*a)
+        if getattr(deposit_cuda, counter) != before + 1:
+            raise AssertionError(f"{name}: {counter} did not count the launch")
+        ref = plain(*a)
+        n_bad = int((got != ref).sum())
+        if n_bad:
+            raise AssertionError(f"{name}, {label}, P = {a[0].shape[0]}: "
+                                 f"{n_bad} of {ref.numel()} outputs differ")
+
+
+def check_deposit(sim, inputs, label: str, card: str) -> dict:
+    """K2 against packed_key_lookup_plain on ``inputs`` (ix, iy, tbr) and
+    on one point fewer."""
     from attpc_engine_tpu_torch.detector import deposit_cuda
 
     ix, iy, tbr = inputs
     args = (ix, iy, tbr, sim.pad_table, 1, 2**31 - 1)
-    got = deposit_cuda.packed_key_lookup_cuda(*args)
-    ref = deposit_cuda.packed_key_lookup_plain(*args)
-    n_bad = int((got != ref).sum())
-    if n_bad:
-        raise AssertionError(f"K2: {n_bad} of {ref.numel()} keys differ")
+    check_lookup("K2", "launches", deposit_cuda.packed_key_lookup_cuda,
+                 deposit_cuda.packed_key_lookup_plain, inputs, args[3:],
+                 label)
     ms = cuda_ms(lambda: deposit_cuda.packed_key_lookup_cuda(*args), 20)
     plain_ms = cuda_ms(lambda: deposit_cuda.packed_key_lookup_plain(*args), 5)
     bnd = bound(lookup_bytes(ix.shape[0], True))
-    print(f"K2 pad lookup: P={ix.shape[0]} ({ref.numel()} keys): bit-exact; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-          f"{bnd['bound_ms']:.4f} ms [{card}]")
+    print(f"K2 pad lookup, {label}: P={ix.shape[0]} and {ix.shape[0] - 1} "
+          f"({ix.shape[0] * 100} keys): bit-exact; kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms, share "
+          f"{bnd['bound_ms'] / ms:.3f} [{card}]")
     return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **bnd,
             "library_ms": None}
 
@@ -580,27 +612,26 @@ def check_rows_lookup(sim, inputs, label: str, card: str) -> dict:
             "library_ms": None, "k2_ms_same_run": k2_ms}
 
 
-def check_pad_lookup(sim, inputs, card: str) -> dict:
+def check_pad_lookup(sim, inputs, label: str, card: str) -> dict:
     """K7 against its plain version; the library call is the one indexing
     gather of the plain version on indices already clipped and widened."""
     from attpc_engine_tpu_torch.detector import deposit_cuda
 
     ix, iy, _ = inputs
     table = sim.pad_table
-    got = deposit_cuda.pad_lookup_cuda(ix, iy, table)
-    ref = deposit_cuda.pad_lookup_plain(ix, iy, table)
-    n_bad = int((got != ref).sum())
-    if n_bad:
-        raise AssertionError(f"K7: {n_bad} of {ref.numel()} pad ids differ")
+    check_lookup("K7", "launches_pad_lookup", deposit_cuda.pad_lookup_cuda,
+                 deposit_cuda.pad_lookup_plain, (ix, iy), (table,), label)
     ms = cuda_ms(lambda: deposit_cuda.pad_lookup_cuda(ix, iy, table), 20)
     plain_ms = cuda_ms(lambda: deposit_cuda.pad_lookup_plain(ix, iy, table), 5)
     ixc = ix.clamp(0, 559).long()[:, :, None]
     iyc = iy.clamp(0, 639).long()[:, None, :]
     library_ms = cuda_ms(lambda: table[ixc, iyc], 20)
     bnd = bound(lookup_bytes(ix.shape[0], False))
-    print(f"K7 pad ids: P={ix.shape[0]}: bit-exact; kernel {ms:.3f} ms, plain "
+    print(f"K7 pad ids, {label}: P={ix.shape[0]} and {ix.shape[0] - 1}: "
+          f"bit-exact; kernel {ms:.3f} ms, plain "
           f"{plain_ms:.3f} ms, library (one indexing gather) "
-          f"{library_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms [{card}]")
+          f"{library_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms, share "
+          f"{bnd['bound_ms'] / ms:.3f} [{card}]")
     return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **bnd,
             "library_ms": library_ms}
 
@@ -913,18 +944,19 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
             "events_per_s": BATCH / float(np.mean(timed)), "first": first}
 
 
-def compare_wider(label: str, flagship_first: dict, wide_first: dict) -> None:
-    """A wider point budget's first batch against the flagship budget's
-    (1,024) in the same configuration: meta_i32 and the packed rows bit for
-    bit, since the padding lanes of the wider merge rows sort last and add
-    nothing (in the fused merge, a step of the segment scan that the wider
-    row adds adds 0.0 to every live segment)."""
-    if not (np.array_equal(wide_first["meta_i32"], flagship_first["meta_i32"])
-            and torch.equal(wide_first["packed"], flagship_first["packed"])):
+def compare_first(label: str, against: str, ref_first: dict,
+                  first: dict) -> None:
+    """A path's first batch against another path's (``against``):
+    meta_i32 and the packed rows bit for bit. A wider point budget's padding
+    lanes sort last and add nothing (in the fused merge, a step of the
+    segment scan that the wider row adds adds 0.0 to every live segment);
+    K2 and K6 give the same keys."""
+    if not (np.array_equal(first["meta_i32"], ref_first["meta_i32"])
+            and torch.equal(first["packed"], ref_first["packed"])):
         raise AssertionError(f"{label}: meta_i32 or packed rows differ from "
-                             f"the point-budget-1,024 batch")
-    print(f"{label} vs point budget 1,024, first batch: meta_i32 and "
-          f"{len(wide_first['packed'])} packed rows bit-identical")
+                             f"the {against} batch")
+    print(f"{label} vs {against}, first batch: meta_i32 and "
+          f"{len(first['packed'])} packed rows bit-identical")
 
 
 def compare_clouds(default: dict, fused: dict, gain: float) -> None:
@@ -1003,6 +1035,7 @@ def main() -> int:
     fused_cfg = dict(merge="fused", lookup="one_stage")
     sim_fused, _, _ = flagship_simulator("cuda", **fused_cfg)
     inputs = lookup_inputs(sim)
+    flagship_inputs = flagship_lookup_inputs(sim_fused, vertices, momenta)
     w, cap = sim.engine.point_budget * 100, sim.engine.uniq_budget
     division = aten_scalar_division(float(sim.config.det_params.efield))
     print(f"ATen CUDA x / efield on {division['n']} f32 values: equal to x *"
@@ -1044,12 +1077,18 @@ def main() -> int:
         "transport": check_transport(sim, vertices[:BATCH], momenta[:BATCH],
                                      card),
         "deposit_rows": deposit_rows["flagship"],
-        "deposit": check_deposit(sim, inputs, card),
+        "deposit": check_deposit(sim, inputs, "random cells", card),
         "sort_rows": sorts["merge"],
         "sort_rows_wide": sorts["wide"],
         "packed_key_lookup_rows": check_rows_lookup(
             sim, inputs, "random cells", card),
-        "pad_lookup": check_pad_lookup(sim, inputs, card),
+        "pad_lookup": check_pad_lookup(sim, inputs, "random cells", card),
+    }
+    lookups_flagship = {
+        "deposit": check_deposit(sim, flagship_inputs, "flagship points",
+                                 card),
+        "pad_lookup": check_pad_lookup(sim, flagship_inputs,
+                                       "flagship points", card),
     }
     from attpc_engine_tpu_torch.detector.sort_cuda import CTA_CAPACITY
 
@@ -1078,14 +1117,16 @@ def main() -> int:
                                       "rows past the cluster route",
                                       ("two_launch", 0)),
     }
-    k6_flagship = check_rows_lookup(
-        sim, flagship_lookup_inputs(sim_fused, vertices, momenta),
-        "flagship points", card)
+    k6_flagship = check_rows_lookup(sim, flagship_inputs, "flagship points",
+                                    card)
+    del flagship_inputs
     res["merge_cluster"] = merges["flagship"]
     res["merge_fused"] = merges["two_launch"]
 
     ix, iy, tbr = inputs
     table = sim.pad_table
+    sim_two_stage, _, _ = flagship_simulator("cuda", merge="fused",
+                                             lookup="two_stage")
     paths = {
         "default": main_path(sim, vertices, momenta, "default",
                              ("transport", "deposit_rows", "sort_rows"),
@@ -1098,6 +1139,12 @@ def main() -> int:
                            ("deposit", "deposit_rows", "pad_lookup",
                             "sort_rows_wide", "merge_fused"), card,
                            per_batch={"merge_cluster": 1, "sort_rows": 1}),
+        "fused_two_stage": main_path(
+            sim_two_stage, vertices, momenta, "fused two-stage",
+            ("transport", "sort_rows", "merge_cluster", "deposit"),
+            ("packed_key_lookup_rows", "pad_lookup", "deposit_rows",
+             "sort_rows_wide", "merge_fused"), card,
+            per_batch={"deposit": 1, "merge_cluster": 1, "sort_rows": 1}),
         "pad_lookup": entry_point_path(
             "pad_lookup",
             lambda: deposit_cuda.pad_lookup(ix, iy, table), card),
@@ -1106,7 +1153,7 @@ def main() -> int:
             lambda: deposit_cuda.packed_key_lookup(ix, iy, tbr, table, 1,
                                                    2**31 - 1), card),
     }
-    del sim_fused
+    del sim_fused, sim_two_stage
     sim_retry, _, _ = flagship_simulator(
         "cuda", point_budget=RETRY_POINT_BUDGET)
     paths["retry_width"] = main_path(
@@ -1124,10 +1171,12 @@ def main() -> int:
         ("deposit", "deposit_rows", "pad_lookup", "merge_cluster"), card,
         wide_per_batch=1, per_batch={"merge_fused": 1, "sort_rows": 2})
     del sim_fused_wide
-    compare_wider("retry width", paths["default"]["first"],
-                  paths["retry_width"]["first"])
-    compare_wider("fused wide", paths["fused"]["first"],
-                  paths["fused_wide"]["first"])
+    compare_first("fused two-stage", "fused one-stage (4b)",
+                  paths["fused"]["first"], paths["fused_two_stage"]["first"])
+    compare_first("retry width", "point budget 1,024",
+                  paths["default"]["first"], paths["retry_width"]["first"])
+    compare_first("fused wide", "point budget 1,024",
+                  paths["fused"]["first"], paths["fused_wide"]["first"])
     compare_clouds(paths["default"]["first"], paths["fused"]["first"],
                    float(sim.config.det_params.mpgd_gain))
     check_against_cpu(sim, vertices, momenta)
@@ -1157,6 +1206,9 @@ def main() -> int:
                        synthetic_before_ms=deposit_rows["synthetic"][
                            "before_ms"],
                        aten_division=division)
+        if name in lookups_flagship:
+            row.update({f"flagship_{k}": lookups_flagship[name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "library_ms")})
         if name == "packed_key_lookup_rows":
             row.update(flagship_ms=k6_flagship["ms"],
                        flagship_k2_ms_same_run=k6_flagship["k2_ms_same_run"],
@@ -1174,6 +1226,8 @@ def main() -> int:
         "events_per_s": paths["default"]["events_per_s"],
         "fused_path_ms_per_batch": paths["fused"]["ms_per_batch"],
         "fused_events_per_s": paths["fused"]["events_per_s"],
+        "fused_two_stage_path_ms_per_batch": paths["fused_two_stage"][
+            "ms_per_batch"],
         "retry_width_path_ms_per_batch": paths["retry_width"]["ms_per_batch"],
         "fused_wide_path_ms_per_batch": paths["fused_wide"]["ms_per_batch"],
         "card": card}))

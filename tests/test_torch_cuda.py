@@ -7,10 +7,10 @@ the JAX package (the card's Python needs neither jax nor h5py for it):
     python -m pytest -q tests/test_torch_cuda.py
 
 Bounds: K1 alive flags exact, positions within 1e-6 m, |dKE| within
-1e-4 MeV (tests/test_transport_pallas.py); K2, K3 (both routes), K6, K7
-and the deposit-rows kernel bit-exact; K5 (both routes) key2 and n_uniq
-exact and c2 bit-exact. A wrapper given a
-CUDA tensor it cannot take raises: nothing falls back.
+1e-4 MeV (tests/test_transport_pallas.py); K2 and K7 (one quad kernel), K3
+(both routes), K6 and the deposit-rows kernel bit-exact; K5 (both routes)
+key2 and n_uniq exact and c2 bit-exact. A wrapper given a CUDA tensor it
+cannot take raises: nothing falls back.
 """
 
 from pathlib import Path
@@ -298,14 +298,20 @@ def test_deposit_rows_kernel_matches_plain(cuda_device):
 
 def test_default_step_takes_the_rows_kernel(cuda_device):
     """The default configuration launches the deposit-rows kernel and not
-    K2; the fused-merge, two-stage one keeps K2."""
-    for cfg, rows, k2 in (({}, 1, 0), (dict(merge="fused"), 0, 1)):
+    K2; the fused-merge, two-stage one launches K2 and K5's cluster route
+    once, and not K6 or the rows kernel."""
+    def counts():
+        return (deposit_cuda.launches_deposit_rows, deposit_cuda.launches,
+                merge_cuda.launches_cluster, deposit_cuda.launches_rows)
+
+    for cfg, expect in (({}, (1, 0, 0, 0)),
+                        (dict(merge="fused", lookup="two_stage"),
+                         (0, 1, 1, 0))):
         sim, vert, mom = _simulator(cuda_device, n_time_steps=1000,
                                     events_per_batch=8, **cfg)
-        before = (deposit_cuda.launches_deposit_rows, deposit_cuda.launches)
+        before = counts()
         sim.simulate_batch(vert[:8], mom[:8], seed=1, assemble=False)
-        after = (deposit_cuda.launches_deposit_rows, deposit_cuda.launches)
-        assert (after[0] - before[0], after[1] - before[1]) == (rows, k2)
+        assert tuple(a - b for a, b in zip(counts(), before)) == expect
 
 
 def test_rows_and_pad_lookup_kernels_match_plain(cuda_device):
@@ -376,6 +382,38 @@ def test_rows_lookup_kernel_ragged_points(cuda_device, p):
         *args, sim.pad_table, 1, SENT))
     assert torch.equal(got, deposit_cuda.packed_key_lookup_cuda(
         *args, sim.pad_table, 1, SENT))
+
+
+@pytest.mark.parametrize("p", [1, 3, 5003, 40_001])
+def test_quad_lookup_kernels_ragged_points(cuda_device, p):
+    """K2 and K7, one quad kernel, where the last block holds fewer quads
+    than threads: bit-exact against their plain versions, one launch a call,
+    with out-of-plane cells (clamped onto the table's edges) and cells
+    aliased onto its sentinel padding (row 0 of point 0 wholly); also on
+    inputs that start one point into their allocation."""
+    sim, _, _ = _simulator(cuda_device)
+    rng = np.random.default_rng(p)
+    ix = rng.integers(-5, 565, (p + 1, 10)).astype(np.int32)
+    iy = rng.integers(-5, 645, (p + 1, 10)).astype(np.int32)
+    ix[rng.random((p + 1, 10)) < 0.1] = 559
+    iy[rng.random((p + 1, 10)) < 0.1] = 639
+    ix[:, 0] = 559
+    tbr = rng.integers(0, 1024, p + 1).astype(np.int32)
+    full = [torch.from_numpy(a).to(cuda_device) for a in (ix, iy, tbr)]
+    table = sim.pad_table
+    for args in ([a[:p] for a in full], [a[1:] for a in full]):
+        before = deposit_cuda.launches
+        keys = deposit_cuda.packed_key_lookup(*args, table, 1, SENT)
+        assert deposit_cuda.launches == before + 1
+        assert torch.equal(keys, deposit_cuda.packed_key_lookup_plain(
+            *args, table, 1, SENT))
+        before = deposit_cuda.launches_pad_lookup
+        pads = deposit_cuda.pad_lookup(args[0], args[1], table)
+        assert deposit_cuda.launches_pad_lookup == before + 1
+        assert torch.equal(pads, deposit_cuda.pad_lookup_plain(
+            args[0], args[1], table))
+        assert (keys[:, 0] == SENT).all() and (pads[:, 0] == 10240).all()
+        assert (keys != SENT).any()
 
 
 def _merge_edge_rows(w: int, rank_bits: int):

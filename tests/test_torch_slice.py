@@ -1,7 +1,7 @@
 """The port's detector step as a whole against the JAX package's, and its
-run_simulation writing Spyral HDF5; the fused-merge, one-stage-lookup
-configuration (K5, K6) against the JAX package's and against the port's
-default configuration.
+run_simulation writing Spyral HDF5; the fused-merge configurations (K5
+with K6, one-stage lookup, or K2, two-stage) against the JAX package's,
+and the one-stage one against the port's default configuration.
 
 Both simulators run on the CPU (the JAX one with its default flags and no
 mesh: tests/conftest.py gives JAX 8 virtual devices, and a mesh would
@@ -266,7 +266,7 @@ def test_device_default_and_cuda_tensor_routing():
 
 
 # ----------------------------------------------------------------------- #
-# the fused-merge, one-stage-lookup configuration (K5, K6)
+# the fused-merge configurations (K5 with K6 or K2)
 
 FUSED = dict(merge="fused", lookup="one_stage")
 INTEGERS = ("pads", "tbs_i", "tbs", "labels", "events", "cloud_valid",
@@ -350,12 +350,13 @@ def _chain_tracks():
 
 @pytest.mark.parametrize("tracks", [_random_walk_tracks, _chain_tracks],
                          ids=["flagship", "chain"])
-def test_fused_one_stage_deposit_matches_jax(tracks):
-    """The port's deposit_and_merge(merge="fused", lookup="one_stage")
-    against the JAX one with pallas_lookup=True, pallas_sort="fused",
-    lookup_two_stage=False (interpret mode), on the same electrons and
-    wiggle: every integer exact; charges (gain 1) within rtol 1e-5 /
-    atol 1e-2, the bound of tests/test_sort_pallas.py:171-173."""
+@pytest.mark.parametrize("lookup", ["one_stage", "two_stage"])
+def test_fused_merge_deposit_matches_jax(lookup, tracks):
+    """The port's deposit_and_merge(merge="fused", lookup=...) against the
+    JAX one with pallas_lookup=True, pallas_sort="fused" and
+    lookup_two_stage=False (K6) or True (K2) (interpret mode), on the same
+    electrons and wiggle: every integer exact; charges (gain 1) within
+    rtol 1e-5 / atol 1e-2, the bound of tests/test_sort_pallas.py:171-173."""
     from attpc_engine_tpu.detector.deposition import deposit_and_merge as jdm
     from tests.test_torch_host import jax_config
 
@@ -374,7 +375,7 @@ def test_fused_one_stage_deposit_matches_jax(tracks):
                             "track_labels")]
     keys = event_keys(jax.random.PRNGKey(47), e)
     ref = jdm(keys, *args, dev["key_grid_mm"], pallas_lookup=True,
-              pallas_sort="fused", lookup_two_stage=False,
+              pallas_sort="fused", lookup_two_stage=lookup == "two_stage",
               plane_hi=dev["plane_hi"], plane_lo=dev["plane_lo"], **kw)
     u = ref["pads"].shape[0] // e
     wiggle = np.asarray(jax.vmap(
@@ -385,8 +386,8 @@ def test_fused_one_stage_deposit_matches_jax(tracks):
     from attpc_engine_tpu_torch.detector.deposition import deposit_and_merge
 
     got = deposit_and_merge(*(torch.from_numpy(np.asarray(a)) for a in args),
-                            table, wiggle=torch.from_numpy(wiggle), **FUSED,
-                            **kw)
+                            table, wiggle=torch.from_numpy(wiggle),
+                            merge="fused", lookup=lookup, **kw)
     for name in INTEGERS:
         np.testing.assert_array_equal(got[name].numpy(),
                                       np.asarray(ref[name]), err_msg=name)

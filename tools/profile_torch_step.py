@@ -1,8 +1,9 @@
 """Where the PyTorch port's detector step spends its device time.
 
 Runs the flagship batch (384 events of the committed smoke kinematics, the
-default engine parameters, or with ``--fused`` the fused-merge, one-stage
-configuration ``merge="fused", lookup="one_stage"``) on the card: two
+default engine parameters, or with ``--fused`` the fused-merge
+configuration ``merge="fused"`` with ``lookup="one_stage"``, or with
+``--fused --lookup two_stage`` its two-stage lookup, K2) on the card: two
 warm-up batches, then one batch under ``torch.profiler`` with CPU and CUDA
 activities. Prints the card's name and power limit, the step's wall time,
 the summed device time of its kernels and the device's idle share over the
@@ -10,10 +11,10 @@ step, the device time by stage (record_function ranges), and the kernels
 with the most device time.
 
 Run from the repository root on a machine with a CUDA card:
-``python3 tools/profile_torch_step.py [--fused | --rows-before]
-[trace.json]``; with a path, the chrome trace of the profiled batch is
-written there. ``--rows-before`` profiles the default step with its
-deposit rows built as they were before the rows kernel
+``python3 tools/profile_torch_step.py [--fused [--lookup two_stage] |
+--rows-before] [trace.json]``; with a path, the chrome trace of the
+profiled batch is written there. ``--rows-before`` profiles the default
+step with its deposit rows built as they were before the rows kernel
 (``deposition.deposit_rows_plain`` with K2 as its lookup: the mesh and
 charges in PyTorch passes, K2, the mask and pack64), so the
 ``deposit_rows`` span of the two runs compares the two ways on one card.
@@ -52,6 +53,15 @@ CUDA events around the chunk sort and each merge pass, and prints each
 launch's mean time over three runs, their sum, the same run's
 ``torch.sort``, the byte bound and the design's floor (1 + log2 c times
 the bound). Its table is behind the chunk rule ``sort_cuda.WIDE_CHUNK``.
+
+``--lookups [OTHER/deposit.cu]`` instead times K2 and K7
+(``attpc_packed_key_lookup``, ``attpc_pad_lookup``) on chip_smoke's random
+cells and on the flagship's own points (the (ix, iy, tbr) of a fused
+batch), each checked bit for bit against its plain version, with their
+bounds. Given another checkout's ``deposit.cu`` with the same C interface
+(the parent commit's, unpacked by ``git archive``), it builds that file
+into a library of its own and times its K2 and K7 on the same inputs in
+the same process, in turns: other, this, this, other.
 """
 
 import ctypes
@@ -224,6 +234,66 @@ def wide_phases(reps: int = 3) -> None:
         del x, ref
 
 
+def lookups(other: str | None, reps: int = 20) -> None:
+    """K2 and K7 of this checkout, and of ``other`` if given, on the same
+    inputs in turns (see the module doc)."""
+    from attpc_engine_tpu_torch import kernels
+
+    libs = {"this": kernels.library()}
+    order = ["this", "this"]
+    if other:
+        so = kernels.BUILD_DIR / "libattpc_lookups_other.so"
+        kernels.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([kernels.nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o",
+                        str(so), other], check=True,
+                       timeout=kernels.BUILD_TIMEOUT_S)
+        lib = ctypes.CDLL(str(so))
+        vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.attpc_packed_key_lookup.argtypes = [vp] * 5 + [i64, i32, i32, vp]
+        lib.attpc_pad_lookup.argtypes = [vp] * 4 + [i64, vp]
+        libs["other"] = lib
+        order = ["other", "this", "this", "other"]
+        print(f"other: {other}")
+    sim, vert, mom = chip_smoke.flagship_simulator("cuda")
+    sim_fused, _, _ = chip_smoke.flagship_simulator(
+        "cuda", merge="fused", lookup="one_stage")
+    inputs = {"random cells": chip_smoke.lookup_inputs(sim),
+              "flagship points": chip_smoke.flagship_lookup_inputs(
+                  sim_fused, vert, mom)}
+    table, sent = sim.pad_table, 2**31 - 1
+    ptr = kernels.ptr
+    for label, (ix, iy, tbr) in inputs.items():
+        p = ix.shape[0]
+        out = torch.empty((p, 10, 10), dtype=torch.int32, device="cuda")
+        calls = {
+            "K2": (lambda lib: lib.attpc_packed_key_lookup(
+                ptr(ix), ptr(iy), ptr(tbr), ptr(table), ptr(out), p, 1, sent,
+                kernels.stream(ix)),
+                deposit_cuda.packed_key_lookup_plain(ix, iy, tbr, table, 1,
+                                                     sent),
+                chip_smoke.lookup_bytes(p, True)),
+            "K7": (lambda lib: lib.attpc_pad_lookup(
+                ptr(ix), ptr(iy), ptr(table), ptr(out), p, kernels.stream(ix)),
+                deposit_cuda.pad_lookup_plain(ix, iy, table),
+                chip_smoke.lookup_bytes(p, False)),
+        }
+        for name, (call, ref, n_bytes) in calls.items():
+            for who, lib in libs.items():
+                kernels.check(call(lib), f"{name} ({who})")
+                if not torch.equal(out, ref):
+                    raise AssertionError(f"{name} ({who}), {label}: differs "
+                                         f"from its plain version")
+            times = {who: [] for who in libs}
+            for who in order:
+                times[who].append(chip_smoke.cuda_ms(
+                    lambda: call(libs[who]), reps))
+            bound_ms = chip_smoke.bound(n_bytes)["bound_ms"]
+            print(f"{name}, {label}, P={p}: bit-exact; "
+                  + "; ".join(f"{who} " + " / ".join(f"{t:.4f}" for t in ts)
+                              + " ms" for who, ts in times.items())
+                  + f"; bound {bound_ms:.4f} ms")
+
+
 def transport_steps() -> None:
     """Per-step SM cycles of K1 (see the module doc), both with the
     branch-free fast paths and with every step through the compiler's IEEE
@@ -299,15 +369,25 @@ def main() -> int:
         print(f"card: {chip_smoke.card_line()}; K3 wide route by launch")
         wide_phases()
         return 0
+    if "--lookups" in args:
+        rest = args[args.index("--lookups") + 1:]
+        print(f"card: {chip_smoke.card_line()}; K2 and K7")
+        lookups(rest[0] if rest else None)
+        return 0
     if "--transport-steps" in args:
         print(f"card: {chip_smoke.card_line()}; K1 cycles per step")
         transport_steps()
         return 0
     fused = "--fused" in args
     rows_before = "--rows-before" in args
+    lookup = "one_stage"
+    if "--lookup" in args:
+        i = args.index("--lookup")
+        lookup = args[i + 1]
+        del args[i:i + 2]
     args = [a for a in args if a not in ("--fused", "--rows-before")]
     print(f"card: {chip_smoke.card_line()}; configuration "
-          f"{'fused' if fused else 'default'}"
+          f"{f'fused, lookup {lookup}' if fused else 'default'}"
           f"{', rows built as before the rows kernel' if rows_before else ''}")
     if rows_before:
         deposition.deposit_rows = functools.partial(
@@ -315,7 +395,7 @@ def main() -> int:
             lookup=deposit_cuda.packed_key_lookup_cuda)
     for (mod, attr), name in STAGES.items():
         setattr(mod, attr, _ranged(name, getattr(mod, attr)))
-    engine = dict(merge="fused", lookup="one_stage") if fused else {}
+    engine = dict(merge="fused", lookup=lookup) if fused else {}
     sim, vert, mom = chip_smoke.flagship_simulator("cuda", **engine)
     b = chip_smoke.BATCH
 
@@ -355,11 +435,13 @@ def main() -> int:
         print(f"  {e.self_device_time_total / 1e3:9.3f} {e.count:6d}  "
               f"{e.key[:90]}")
     print("the port's own kernels (csrc/*.cu; ms, launches):")
-    own = "(anonymous namespace)::"  # csrc's kernels; PyTorch's start "void"
+    # csrc's kernels, "void " before a template's name; PyTorch's are in at::
+    own = "(anonymous namespace)::"
     for e in kern:
-        if e.key.startswith(own):
+        name = e.key.removeprefix("void ")
+        if name.startswith(own):
             print(f"  {e.self_device_time_total / 1e3:9.3f} {e.count:6d}  "
-                  f"{e.key[len(own):][:60]}")
+                  f"{name[len(own):][:60]}")
     n_launches = sum(e.count for e in kern)
     print(f"kernel launches in the step: {n_launches}")
     if fused:
