@@ -49,6 +49,8 @@ __all__ = [
     "philox4x32",
     "philox_normal",
     "fano_noise",
+    "raw_wiggle",
+    "compact_cloud",
     "generate_electrons",
     "deposit_and_merge",
     "deposit_rows",
@@ -83,6 +85,7 @@ _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 FANO_STREAM = 0  # Philox counter word 2 of the Fano noise
+WIGGLE_STREAM = 1  # ... and of the raw-cloud TB wiggle
 
 
 def _mulhilo32(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -164,6 +167,33 @@ def fano_noise(seed: int, event_start: int, n_events: int, tracks: int,
     z = z[:, :, :per_chunk].reshape(n_events, n_chunks * cs, tracks)
     z = z[:, :n_steps]  # [E, T, K]
     return z.permute(1, 0, 2).reshape(n_steps, n_events * tracks)
+
+
+def raw_wiggle(seed: int, event_start: int, n_events: int, width: int,
+               device: torch.device | str = "cuda") -> torch.Tensor:
+    """U[0, 1) f32 TB wiggle [n_events, width] of the raw merged cloud,
+    made on ``device``: column j of the event with global id g is uniform
+    number j of the Philox stream with key (seed low word, g) and counter
+    (j // 4, 0, WIGGLE_STREAM, seed high word), the top 24 bits of a word
+    times 2^-24. It depends only on (seed, g, j), not on the batch grid or
+    the merged window's width. The JAX package draws this wiggle from its
+    own key (deposition.py:546-559); the port's values are its own."""
+    device = require_device(device)
+    i64 = dict(dtype=torch.int64, device=device)
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    n_ctr = -(-width // 4)
+    shape = (n_events, n_ctr)
+    ev = (event_start + torch.arange(n_events, **i64)) & _MASK32
+    counter = [
+        torch.arange(n_ctr, **i64)[None, :].expand(shape),
+        torch.zeros(shape, **i64),
+        torch.full(shape, WIGGLE_STREAM, **i64),
+        torch.full(shape, seed >> 32, **i64),
+    ]
+    key = [torch.full(shape, seed & _MASK32, **i64),
+           ev[:, None].expand(shape)]
+    w = torch.stack(philox4x32(counter, key), dim=-1).reshape(n_events, -1)
+    return (w[:, :width] >> 8).to(torch.float32) * (1.0 / 16777216.0)
 
 
 def generate_electrons(dke: torch.Tensor, noise: torch.Tensor,
@@ -539,4 +569,32 @@ def deposit_and_merge(
         out["tbs"] = torch.minimum(
             tb_w + wiggle.reshape(-1), torch.nextafter(tb_w + 1.0, tb_w)
         )
+    return out
+
+
+def compact_cloud(cloud: dict, n_events: int, cap: int) -> dict:
+    """The merged entries in one pooled layout (deposition.py:586-616):
+    valid rows first, ordered by (event, key), at most ``cap`` rows an
+    event in a shared pool of min(n_events * cap, rows) slots; for the
+    reference-protocol writer path. ``cloud`` holds pads, tbs, charges,
+    labels, events, cloud_valid and counts as ``deposit_and_merge`` gives
+    them (with a wiggle). Returns the same keys in the pooled layout, with
+    counts [E] taken from it, and ``overflow``, the rows past the pool."""
+    e = n_events
+    s_cap = min(e * cap, cloud["pads"].shape[0])
+    evkey = torch.where(cloud["cloud_valid"], cloud["events"],
+                        torch.full_like(cloud["events"], 2**30))
+    ev, order = torch.sort(evkey, stable=True)
+    ev = ev[:s_cap]
+    order = order[:s_cap]
+    total = cloud["counts"].sum(dtype=torch.int32)
+    overflow = torch.clamp(total - s_cap, min=0)
+    ev_range = torch.arange(e + 1, dtype=ev.dtype, device=ev.device)
+    bounds = torch.searchsorted(ev, ev_range, right=False)
+    counts = (bounds[1:] - bounds[:-1]).to(torch.int32)
+    valid = (torch.arange(s_cap, dtype=torch.int32, device=ev.device)
+             < torch.clamp(total, max=s_cap))
+    out = {k: cloud[k][order] for k in ("pads", "tbs", "charges", "labels")}
+    out.update(events=torch.where(valid, ev, torch.full_like(ev, e)),
+               cloud_valid=valid, counts=counts, overflow=overflow)
     return out

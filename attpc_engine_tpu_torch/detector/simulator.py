@@ -6,9 +6,12 @@ device: transport (K1), electron generation, deposition and merge (K2 and
 K3 by default; K6 and K5 with ``EngineParams(lookup="one_stage",
 merge="fused")``), and the Spyral conversion (K3), giving packed int32 rows
 per batch that the host turns into Spyral HDF5 files. ``run_simulation``
-streams the batches of a kinematics file through it into a writer. Both
-run on the card unless the caller passes ``device="cpu"``, which runs the
-kernels' plain PyTorch versions.
+streams the batches of a kinematics file through it into a writer, with
+the JAX driver's step-window and budget auto-tuning, one batch's copy to
+the host in flight behind the next batch's step and the writes on a
+background thread; ``simulate`` runs one event. All run on the card unless
+the caller passes ``device="cpu"``, which runs the kernels' plain PyTorch
+versions.
 
     integrate_tracks (transport.py)       [E*K] tracks, RK4 windows
  -> generate_electrons (deposition.py)    Fano-smeared counts
@@ -18,7 +21,12 @@ kernels' plain PyTorch versions.
 
 from __future__ import annotations
 
-import contextlib
+import dataclasses
+import os
+import queue
+import sys
+import threading
+import time
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -28,12 +36,15 @@ import torch
 from .. import nuclear_map
 from ..constants import NUM_TB
 from ..kernels import require_device
+from ..utils.profiling import PhaseTimes, phase_timer
 from .deposition import (
     LOOKUPS,
     MERGES,
+    compact_cloud,
     deposit_and_merge,
     fano_noise,
     generate_electrons,
+    raw_wiggle,
 )
 from .parameters import PAD_ID_SENTINEL, PAD_TABLE_NX, PAD_TABLE_NY, Config
 from .response import get_response
@@ -43,7 +54,9 @@ from .transport import TrackSpecies, integrate_tracks
 __all__ = [
     "EngineParams",
     "DetectorSimulator",
+    "PoolOverflow",
     "run_simulation",
+    "simulate",
     "split_packed",
     "wiggle_for_events",
 ]
@@ -91,13 +104,18 @@ class EngineParams:
     """Engine knobs of the batched detector step (the JAX package's
     EngineParams less its TPU-only ones).
 
-    n_time_steps: deposit points per track (reference t_eval: 10,000).
+    n_time_steps: deposit points per track (reference t_eval: 10,000), the
+        physics window: ``run_simulation`` tunes its window down to the
+        tracks' observed lifetimes (and retries larger when they outlive
+        it), never past this value.
     dt: integrator step in seconds (reference: 1e-10).
     chunk_steps: steps per transport window; the host stops after the
         first window that ends with every track dead.
     point_budget: deposit-point slots per event; overflow is counted and
         ``run_simulation`` doubles the budget and retries.
     uniq_budget: unique (pad, tb) slots per event (the merged window).
+    cloud_cap: per-event capacity of the compacted raw-cloud pool, built
+        only for a reference-protocol writer (``compact_cloud``).
     out_budget: Spyral rows per event in the shared output pool.
     events_per_batch: events per device step.
     merge: the per-event merge. "sorts" (default): two row sorts (K3)
@@ -115,6 +133,7 @@ class EngineParams:
     chunk_steps: int = 500
     point_budget: int = 1024
     uniq_budget: int = 12288
+    cloud_cap: int = 12288
     out_budget: int = 8192
     events_per_batch: int = 256
     merge: str = "sorts"
@@ -249,11 +268,13 @@ class DetectorSimulator:
         seed: int,
         event_start: int,
         noise: torch.Tensor | None,
+        wiggle: bool = False,
     ):
         """Transport + electrons + deposit/merge for ``n_events`` events
         (simulator.py:359-485). ``noise`` [n_steps, E*K] replaces the Fano
-        draws of ``fano_noise(seed, event_start, ...)``. Returns (cloud
-        dict, steps_alive)."""
+        draws of ``fano_noise(seed, event_start, ...)``; with ``wiggle`` the
+        cloud also holds the raw cloud's wiggled ``tbs`` (``raw_wiggle``).
+        Returns (cloud dict, steps_alive)."""
         cfg, eng = self.config, self.engine
         dp = cfg.det_params
         e, k = n_events, self.k_tracks
@@ -277,6 +298,7 @@ class DetectorSimulator:
         electrons = generate_electrons(
             dke, noise.to(vg.device), dp.w_value, dp.fano_factor
         )
+        u_cap = min(uniq_budget, point_budget * 100)
         cloud = deposit_and_merge(
             positions, electrons, alive, self._labels.repeat(e),
             self.pad_table,
@@ -292,6 +314,8 @@ class DetectorSimulator:
             tracks_per_event=k,
             point_budget=point_budget,
             uniq_budget=uniq_budget,
+            wiggle=(raw_wiggle(seed, event_start, e, u_cap, device=vg.device)
+                    if wiggle else None),
             merge=eng.merge,
             lookup=eng.lookup,
         )
@@ -468,6 +492,8 @@ class DetectorSimulator:
         out_budget: int | None = None,
         n_steps: int | None = None,
         wiggle_seed: int = 0,
+        compact: bool = False,
+        cloud_cap: int | None = None,
     ) -> dict:
         """Simulate a batch of events on ``self.device``.
 
@@ -482,6 +508,10 @@ class DetectorSimulator:
         ``meta_i32``, the merged cloud and the overflow counters; with
         ``assemble``, also host ``spyral`` [total, 8] f64 and
         ``spyral_labels`` [total] i64 (TB wiggle from ``wiggle_seed``).
+        With ``compact``, the merged cloud (with its wiggled ``tbs``) is
+        pooled by ``compact_cloud`` at ``cloud_cap`` rows an event (its
+        counts replace the merged ones) and ``cloud_overflow`` counts the
+        rows past the pool: the reference-protocol writer's layout.
         """
         eng = self.engine
         e = len(vertices)
@@ -498,10 +528,14 @@ class DetectorSimulator:
         cloud, steps_alive = self._core(
             vg_dev, e, point_budget or eng.point_budget,
             uniq_budget or eng.uniq_budget, n_steps or eng.n_time_steps,
-            seed, event_start, noise,
+            seed, event_start, noise, wiggle=compact,
         )
         out = self._finish(cloud, steps_alive, out_budget or eng.out_budget,
                            e)
+        if compact:
+            cc = compact_cloud(out, e, cloud_cap or eng.cloud_cap)
+            out["cloud_overflow"] = cc.pop("overflow")
+            out.update(cc)
         if assemble:
             counts = out["spyral_counts"].cpu().numpy()
             total = int(counts.sum())
@@ -522,10 +556,16 @@ class PoolOverflow(RuntimeError):
         self.kinds = kinds
 
 
-def overflow_kinds(meta: np.ndarray) -> dict:
-    """The budgets a batch overflowed, from its meta_i32 (whose last five
-    entries are out, uniq and point overflows, steps_alive, uniq_max)."""
-    out_overflow, uniq_overflow, pool_overflow = meta[-5:-2]
+def overflow_kinds(meta: np.ndarray, n_steps: int | None = None,
+                   max_steps: int | None = None,
+                   cloud_overflow: int = 0) -> dict:
+    """The budgets a batch overflowed (simulator.py:1162-1185), from its
+    meta_i32, whose last five entries are the out, uniq and point
+    overflows, steps_alive and uniq_max: "point", "uniq", "out"; "cloud"
+    where ``cloud_overflow`` (rows past the compacted pool) is positive;
+    "steps" where tracks were alive at the end of a window of ``n_steps``
+    shorter than the physics window ``max_steps``."""
+    out_overflow, uniq_overflow, pool_overflow, steps_alive = meta[-5:-1]
     kinds = {}
     if pool_overflow > 0:
         kinds["point"] = int(pool_overflow)
@@ -533,7 +573,397 @@ def overflow_kinds(meta: np.ndarray) -> dict:
         kinds["uniq"] = int(uniq_overflow)
     if out_overflow > 0:
         kinds["out"] = int(out_overflow)
+    if cloud_overflow > 0:
+        kinds["cloud"] = int(cloud_overflow)
+    if n_steps is not None and steps_alive >= n_steps and n_steps < max_steps:
+        kinds["steps"] = int(steps_alive)
     return kinds
+
+
+# one DetectorSimulator for simulate(): it holds the step's device tables
+_SIMULATE_CACHE: dict = {}
+
+
+def _config_fingerprint(config: Config) -> tuple:
+    """Value-derived key of everything a DetectorSimulator takes from a
+    Config (simulator.py:46-58): physics scalars, electronics, the gas and
+    the pad asset sources."""
+    dp, ep, pp = config.det_params, config.elec_params, config.pad_params
+    gas = dp.gas_target
+    return (
+        dp.length, dp.efield, dp.bfield, dp.mpgd_gain, dp.diffusion,
+        dp.fano_factor, dp.w_value,
+        ep.clock_freq, ep.amp_gain, ep.shaping_time, ep.micromegas_edge,
+        ep.windows_edge, ep.adc_threshold,
+        tuple(gas.components), gas.pressure, getattr(gas, "temperature", None),
+        str(pp.grid_path), str(pp.geometry_path), str(pp.pad_size_path),
+    )
+
+
+def _engine_fingerprint(engine: EngineParams | None) -> tuple | None:
+    """Every field of ``engine`` (simulator.py:61-69)."""
+    return None if engine is None else dataclasses.astuple(engine)
+
+
+def simulate(
+    momenta: np.ndarray,
+    vertex: np.ndarray,
+    proton_numbers: np.ndarray,
+    mass_numbers: np.ndarray,
+    config: Config,
+    rng: np.random.Generator,
+    indices: list[int],
+    engine: EngineParams | None = None,
+    device: torch.device | str = "cuda",
+) -> tuple[np.ndarray, np.ndarray]:
+    """One event, the reference's single-event API (simulator.py:995-1048).
+
+    Returns (cloud [n, 3] f64 = [pad, tb (wiggled), electrons], labels
+    [n] i64): the event's merged cloud as ``simulate_batch(compact=True)``
+    gives it, with the seed drawn from ``rng`` as the JAX package draws its
+    key (``rng.integers(0, 2**63 - 1)``). The DetectorSimulator of the last
+    (config, nuclei, indices, engine, device) is kept, keyed by content,
+    not identity; bulk work belongs in ``run_simulation``.
+    """
+    dev = require_device(device)
+    cache_key = (
+        _config_fingerprint(config),
+        tuple(np.asarray(proton_numbers).tolist()),
+        tuple(np.asarray(mass_numbers).tolist()),
+        tuple(indices),
+        _engine_fingerprint(engine),
+        str(dev),
+    )
+    sim = _SIMULATE_CACHE.get(cache_key)
+    if sim is None:
+        sim = DetectorSimulator(config, proton_numbers, mass_numbers,
+                                indices=indices, engine=engine, device=dev)
+        _SIMULATE_CACHE.clear()
+        _SIMULATE_CACHE[cache_key] = sim
+    seed = int(rng.integers(0, 2**63 - 1))
+    # a one-event pool as wide as the merged window: nothing is cut
+    out = sim.simulate_batch(np.asarray(vertex)[None, :],
+                             np.asarray(momenta)[None, :, :], seed=seed,
+                             assemble=False, compact=True,
+                             cloud_cap=sim.engine.uniq_budget)
+    n = int(out["counts"][0])
+    cloud = torch.stack([out["pads"][:n].double(), out["tbs"][:n].double(),
+                         out["charges"][:n].double()], dim=-1)
+    return cloud.cpu().numpy(), out["labels"][:n].long().cpu().numpy()
+
+
+class _HostCopies:
+    """Copies of packed rows to the host, started behind a batch's step and
+    finished after the next batch's dispatch (simulator.py:1353-1363).
+
+    On a CUDA device a copy runs on a side stream, after an event recorded
+    on the compute stream, into a page-locked buffer; the source is kept
+    alive for the side stream (``record_stream``). ``finish`` waits for the
+    copy, copies the rows out into an array the caller owns and only then
+    frees the buffer for another batch. On the CPU the rows are the
+    tensor's own memory.
+    """
+
+    ROWS_QUANTUM = 1 << 16
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self.free: list[torch.Tensor] = []
+
+    def start(self, src: torch.Tensor):
+        if not self.cuda:
+            return src
+        rows = src.shape[0]
+        buf = next((b for b in self.free if b.shape[0] >= rows), None)
+        if buf is None:
+            q = self.ROWS_QUANTUM
+            buf = torch.empty((max(-(-rows // q), 1) * q, 2),
+                              dtype=src.dtype, pin_memory=True)
+        else:
+            self.free.remove(buf)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(src.device))
+        self.stream.wait_event(ready)
+        with torch.cuda.stream(self.stream):
+            buf[:rows].copy_(src, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        src.record_stream(self.stream)
+        return buf, rows, done
+
+    def finish(self, handle) -> np.ndarray:
+        if not self.cuda:
+            return handle.numpy()
+        buf, rows, done = handle
+        done.synchronize()
+        rows_np = buf[:rows].numpy().copy()
+        self.free.append(buf)
+        return rows_np
+
+
+def _round_up(k, q: int) -> int:
+    """k rounded up to a multiple of q, at least q (simulator.py:1327-1330)."""
+    return max(((int(k) + q - 1) // q) * q, q)
+
+
+def run_reader(
+    config: Config,
+    reader,
+    writer,
+    indices: list[int] | None = None,
+    engine: EngineParams | None = None,
+    seed: int | None = None,
+    show_progress: bool = True,
+    start_event: int = 0,
+    stop_event: int | None = None,
+    auto_tune: bool = True,
+    device: torch.device | str = "cuda",
+    input_name: str | None = None,
+) -> dict:
+    """The batch loop of ``run_simulation`` over an open kinematics
+    ``reader``: an object with ``n_events``, ``proton_numbers``,
+    ``mass_numbers``, ``read_range(start, stop)`` -> (vertices, momenta)
+    and ``close()``. It closes the reader and the writer on every exit.
+    ``input_name`` is the input's name in the run manifest. Arguments and
+    result as ``run_simulation``'s; a factoring of its body (so that a run
+    can read arrays where no HDF5 reader exists), not an entry point.
+    """
+    times = PhaseTimes()
+    wall_t0 = time.perf_counter()
+    progress = None
+    sim = None
+    budgets: dict = {}
+    stop = None
+    wq: queue.Queue = queue.Queue(maxsize=2)
+    werr: list[BaseException] = []
+    wthread = None
+    try:
+        device = require_device(device)
+        engine = engine or EngineParams()
+        sim = DetectorSimulator(config, reader.proton_numbers,
+                                reader.mass_numbers, indices=indices,
+                                engine=engine, device=device)
+        if seed is None:
+            seed = int(np.random.SeedSequence().entropy % (2**31))
+        stop = (reader.n_events if stop_event is None
+                else min(stop_event, reader.n_events))
+        if show_progress:
+            try:
+                from tqdm import tqdm
+
+                progress = tqdm(total=reader.n_events)
+            except ImportError:
+                pass
+        eb = engine.events_per_batch
+        chunk = engine.chunk_steps
+        # a writer without write_spyral_pool takes the reference protocol:
+        # each event's raw [pad, tb, electrons] cloud through write()
+        raw_writer = not hasattr(writer, "write_spyral_pool")
+        copies = _HostCopies(device)
+        stats = {"events": 0, "rows": 0}
+        budgets.update(
+            point=engine.point_budget, uniq=engine.uniq_budget,
+            cloud=engine.cloud_cap, out=engine.out_budget,
+            # probe first: under auto-tuning the first batch runs one
+            # chunk; the "steps" overflow climbs x4 up to the physics window
+            steps=(min(chunk, engine.n_time_steps) if auto_tune
+                   else engine.n_time_steps),
+        )
+        tuned = not auto_tune
+
+        def pull_batch(out, n: int, cur_steps: int):
+            """The batch's metadata (a sync, before the next dispatch), its
+            overflows raised as PoolOverflow, then the start of its packed
+            rows' copy, or the pull of its compacted raw cloud. Returns
+            (counts, packed handle, merged counts, raw cloud, statistics
+            for the tuning)."""
+            with phase_timer(times, "pull-meta"):
+                meta = out["meta_i32"].cpu().numpy()
+            cloud_overflow = (int(out["cloud_overflow"])
+                              if "cloud_overflow" in out else 0)
+            kinds = overflow_kinds(meta, cur_steps, engine.n_time_steps,
+                                   cloud_overflow)
+            if kinds:
+                raise PoolOverflow(kinds)
+            # the port runs a short batch unpadded: stride n
+            counts = meta[:n]
+            n_points = meta[n:2 * n]
+            merged_counts = meta[2 * n:3 * n]
+            tune_stats = (int(n_points.max(initial=0)), int(meta[-1]),
+                          int(counts.sum()), int(meta[-2]))
+            if not raw_writer:
+                total = int(counts.sum())
+                with phase_timer(times, "pull-start"):
+                    handle = copies.start(out["packed"][:total])
+                return counts, handle, merged_counts, None, tune_stats
+            with phase_timer(times, "pull-cloud"):
+                cl_counts = out["counts"][:n].cpu().numpy()
+                cl_total = int(cl_counts.sum())
+                raw = torch.stack(
+                    [out[k][:cl_total].double()
+                     for k in ("pads", "tbs", "charges")], dim=-1,
+                ).cpu().numpy()
+                labels_all = out["labels"][:cl_total].long().cpu().numpy()
+            return counts, None, None, (raw, labels_all, cl_counts), tune_stats
+
+        def write_out(pending) -> None:
+            """Assemble and write one batch, on the writer thread."""
+            counts, packed, raw_counts, cloud_np, start, n = pending
+            events = np.arange(start, start + n)
+            if cloud_np is None:
+                if hasattr(writer, "write_packed"):
+                    with phase_timer(times, "ship-to-writer"):
+                        writer.write_packed(packed, counts, events,
+                                            raw_counts=raw_counts,
+                                            wiggle_seed=seed)
+                else:
+                    with phase_timer(times, "assemble"):
+                        spyral, labels = sim.assemble_spyral_ordered(
+                            packed, counts, events, seed)
+                    with phase_timer(times, "h5py-write"):
+                        writer.write_spyral_pool(spyral, labels, counts,
+                                                 event_numbers=events,
+                                                 raw_counts=raw_counts)
+            else:
+                raw, labels_all, cl_counts = cloud_np
+                offsets = np.concatenate([[0], np.cumsum(cl_counts)])
+                for i in range(n):
+                    lo, hi = int(offsets[i]), int(offsets[i + 1])
+                    if hi > lo:
+                        writer.write(raw[lo:hi], labels_all[lo:hi], config,
+                                     start + i)
+            if progress is not None:
+                progress.update(n)
+
+        def writer_loop() -> None:
+            while True:
+                pending = wq.get()
+                if pending is None:
+                    return
+                try:
+                    if not werr:
+                        write_out(pending)
+                except BaseException as exc:  # raised on the main thread
+                    werr.append(exc)
+
+        def enqueue_write(pending) -> None:
+            if werr:
+                raise werr[0]
+            wq.put(pending)
+
+        def materialize_and_write(p) -> None:
+            counts_p, handle, raw_p, start_p, n_p = p
+            with phase_timer(times, "pull-packed"):
+                packed = copies.finish(handle)
+            enqueue_write((counts_p, packed, raw_p, None, start_p, n_p))
+
+        wthread = threading.Thread(target=writer_loop, name="spyral-writer")
+        wthread.start()
+        # the previous batch, whose packed rows are on their way to the host
+        pending_dev = None
+        for start in range(start_event, stop, eb):
+            with phase_timer(times, "read"):
+                vertices, momenta = reader.read_range(start,
+                                                      min(start + eb, stop))
+            n = len(vertices)
+            for _attempt in range(8):
+                with phase_timer(times, "dispatch"):
+                    out = sim.simulate_batch(
+                        vertices, momenta, seed=seed, event_start=start,
+                        assemble=False, point_budget=budgets["point"],
+                        uniq_budget=budgets["uniq"],
+                        out_budget=budgets["out"], n_steps=budgets["steps"],
+                        compact=raw_writer, cloud_cap=budgets["cloud"],
+                    )
+                if pending_dev is not None:
+                    materialize_and_write(pending_dev)
+                    pending_dev = None
+                try:
+                    counts, handle, merged, cloud_np, tune_stats = pull_batch(
+                        out, n, budgets["steps"])
+                    break
+                except PoolOverflow as ov:
+                    for kind in ov.kinds:
+                        if kind == "steps":
+                            budgets["steps"] = min(
+                                _round_up(budgets["steps"] * 4, chunk),
+                                engine.n_time_steps)
+                        else:
+                            budgets[kind] *= 2
+                            if budgets[kind] > 2**21:
+                                raise
+            else:
+                raise RuntimeError("pool budgets failed to converge")
+            del out
+            if cloud_np is not None:
+                enqueue_write((counts, None, None, cloud_np, start, n))
+            else:
+                pending_dev = (counts, handle, merged, start, n)
+            stats["events"] += n
+            stats["rows"] += int(counts.sum())
+            if not tuned:
+                # retighten to the first batch's multiplicities
+                pts_max, uniq_max, kept, steps_alive = tune_stats
+                budgets["point"] = min(budgets["point"],
+                                       _round_up(pts_max * 1.3, 64))
+                budgets["uniq"] = min(budgets["uniq"],
+                                      _round_up(uniq_max * 1.3, 1024))
+                budgets["out"] = min(budgets["out"],
+                                     _round_up(kept / eb * 1.3, 1024))
+                budgets["steps"] = min(_round_up(steps_alive * 1.3, chunk),
+                                       engine.n_time_steps)
+                tuned = True
+        if pending_dev is not None:
+            materialize_and_write(pending_dev)
+            pending_dev = None
+        wq.put(None)
+        wthread.join()
+        if werr:
+            raise werr[0]
+        if os.environ.get("ATTPC_TPU_TIMING"):
+            print(f"[run_simulation] budgets={budgets}\n{times.summary()}",
+                  file=sys.stderr)
+        stats["budgets"] = dict(budgets)
+        stats["phase_seconds"] = dict(times.seconds)
+        return stats
+    finally:
+        if wthread is not None and wthread.is_alive():
+            wq.put(None)
+            wthread.join()
+        try:
+            writer.close()
+        finally:
+            reader.close()
+            if progress is not None:
+                progress.close()
+        if sim is not None and hasattr(writer, "get_directory_name"):
+            from ..utils.manifest import write_run_manifest
+
+            dp, ep = config.det_params, config.elec_params
+            write_run_manifest(
+                writer.get_directory_name(),
+                stage="detector",
+                seed=seed,
+                event_range=(start_event, stop),
+                device=device,
+                config={
+                    "input": input_name,
+                    "length_m": dp.length,
+                    "efield": dp.efield,
+                    "bfield": dp.bfield,
+                    "mpgd_gain": dp.mpgd_gain,
+                    "diffusion": dp.diffusion,
+                    "fano_factor": dp.fano_factor,
+                    "w_value": dp.w_value,
+                    "adc_threshold": ep.adc_threshold,
+                    "sim_indices": sim.sim_indices,
+                },
+                budgets=budgets,
+                phase_seconds=dict(times.seconds),
+                wall_seconds=time.perf_counter() - wall_t0,
+                extra={"events_per_batch": engine.events_per_batch},
+            )
 
 
 def run_simulation(
@@ -543,82 +973,56 @@ def run_simulation(
     indices: list[int] | None = None,
     engine: EngineParams | None = None,
     seed: int | None = None,
+    show_progress: bool = True,
     start_event: int = 0,
     stop_event: int | None = None,
+    auto_tune: bool = True,
     device: torch.device | str = "cuda",
 ) -> dict:
-    """Run the detector simulation over a kinematics file into ``writer``.
+    """Run the detector simulation over a kinematics file into ``writer``
+    (simulator.py:1051-1479, less its device mesh).
 
     Batches of ``engine.events_per_batch`` events are read with
     ``KinematicsReader`` and simulated on ``device``: the card by default,
     the plain PyTorch versions with ``device="cpu"``; a CUDA device where
-    torch finds none raises before any work. A batch that overflows a
-    budget is run again with every overflowing budget doubled, at most 8
-    times (simulator.py:1148-1189); the draws depend only on the event ids,
-    so the retry reproduces the same physics. ``start_event`` and
-    ``stop_event`` select a range of events; a run resumed with the same
-    seed at ``start_event`` reproduces the events it would have produced.
+    torch finds none raises before any work.
 
-    The writer takes packed rows (``write_packed``, SpyralWriterProc) or
-    assembled rows (``write_spyral_pool``, SpyralWriter); it is closed on
-    return or on error.
+    With ``auto_tune`` the first batch runs one chunk of ``chunk_steps``
+    steps (a window that the "steps" overflow climbs x4, up to
+    ``n_time_steps``), and then the window and the point, uniq and out
+    budgets are retightened to 1.3x the first batch's multiplicities
+    (rounded up to chunk_steps, 64, 1024 and 1024). A batch that overflows
+    a budget runs again with every overflowing budget doubled (the window
+    climbed), at most 8 times. Every draw depends only on the event's
+    global id, so a retry or a tuned window reproduces the same physics,
+    and a run resumed with the same seed at ``start_event`` reproduces the
+    events it would have produced, for any ``events_per_batch``.
 
-    Returns {"events": n, "rows": rows written, "budgets": the final
-    budgets}.
+    One batch's packed rows are copied to the host behind the next batch's
+    step, and the rows are assembled and written on one background thread
+    (a bounded queue, batches in order; its first exception is raised
+    here). The writer takes packed rows (``write_packed``,
+    SpyralWriterProc), assembled rows (``write_spyral_pool``,
+    SpyralWriter) or, lacking both, each event's raw [pad, tb, electrons]
+    cloud (``write``, the reference ``SimulationWriter`` protocol; the
+    "cloud" overflow doubles ``cloud_cap``). The writer is closed on every
+    exit; one with ``get_directory_name`` gets a run manifest there.
+    ``show_progress`` shows a tqdm bar where tqdm is installed;
+    ``ATTPC_TPU_TIMING`` prints the budgets and phase times to stderr.
+
+    Returns {"events": n, "rows": Spyral rows kept, "budgets": the final
+    budgets, "phase_seconds": wall seconds by phase}.
     """
     from ..io.kinematics_file import KinematicsReader
 
-    with contextlib.ExitStack() as stack:
-        stack.callback(writer.close)
-        device = require_device(device)
-        engine = engine or EngineParams()
+    try:
+        require_device(device)
         reader = KinematicsReader(input_path)
-        stack.callback(reader.close)
-        stats = {"events": 0, "rows": 0}
-        sim = DetectorSimulator(config, reader.proton_numbers,
-                                reader.mass_numbers, indices=indices,
-                                engine=engine, device=device)
-        if seed is None:
-            seed = int(np.random.SeedSequence().entropy % (2**31))
-        eb = engine.events_per_batch
-        stop = (reader.n_events if stop_event is None
-                else min(stop_event, reader.n_events))
-        budgets = {"point": engine.point_budget, "uniq": engine.uniq_budget,
-                   "out": engine.out_budget}
-        for start in range(start_event, stop, eb):
-            vertices, momenta = reader.read_range(start, min(start + eb, stop))
-            n = len(vertices)
-            for _attempt in range(8):
-                out = sim.simulate_batch(
-                    vertices, momenta, seed=seed, event_start=start,
-                    assemble=False, point_budget=budgets["point"],
-                    uniq_budget=budgets["uniq"], out_budget=budgets["out"],
-                )
-                meta = out["meta_i32"].cpu().numpy()
-                kinds = overflow_kinds(meta)
-                if not kinds:
-                    break
-                for kind in kinds:
-                    budgets[kind] *= 2
-                    if budgets[kind] > 2**21:
-                        raise PoolOverflow(kinds)
-            else:
-                raise RuntimeError("pool budgets failed to converge")
-            counts = meta[:n]
-            raw_counts = meta[2 * n : 3 * n]
-            total = int(counts.sum())
-            packed = out["packed"][:total].cpu().numpy()
-            events = np.arange(start, start + n)
-            if hasattr(writer, "write_packed"):
-                writer.write_packed(packed, counts, events,
-                                    raw_counts=raw_counts, wiggle_seed=seed)
-            else:
-                spyral, labels = sim.assemble_spyral_ordered(
-                    packed, counts, events, seed
-                )
-                writer.write_spyral_pool(spyral, labels, counts, events,
-                                         raw_counts=raw_counts)
-            stats["events"] += n
-            stats["rows"] += total
-        stats["budgets"] = budgets
-    return stats
+    except BaseException:
+        writer.close()
+        raise
+    return run_reader(config, reader, writer, indices=indices, engine=engine,
+                      seed=seed, show_progress=show_progress,
+                      start_event=start_event, stop_event=stop_event,
+                      auto_tune=auto_tune, device=device,
+                      input_name=str(input_path))

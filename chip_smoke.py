@@ -102,6 +102,24 @@ Phases (each raises on failure, and nothing is caught):
    route for it and on its cluster route for the convert sort, K6 and K1;
    the first batch's ``meta_i32`` and packed rows must equal phase 4b's
    first batch bit for bit.
+4h. The driver: ``run_simulation``'s batch loop (``simulator.run_reader``;
+   the card has no h5py, so a reader over the committed kinematics stands
+   in for the HDF5 one) at the flagship's ``EngineParams(events_per_batch=
+   384)`` with ``auto_tune=True``, over the 1,536 events, with a writer
+   that takes assembled rows (``write_spyral_pool``, so that assembly runs
+   on the driver's writer thread) and keeps them. Run A: the first batch
+   must run the 500-step probe; the tuned budgets (printed) must be no
+   wider than the defaults; K1, the deposit-rows kernel and K3 (cluster
+   route only) must have been launched, K2 not; every batch's assembled
+   rows must equal, bit for bit, the host assembly of phase 4's packed
+   rows of the same events (same seed and wiggle seed) at the full
+   10,000-step window and the default budgets, which catches a race in
+   the pinned copy. Run B: two batches from ``point_budget=256``, whose
+   first batch must run again exactly once, on "point", and whose rows
+   must equal run A's. Printed: the driver's phase times and end-to-end
+   events/s, and the default step alone at run A's tuned window and
+   budgets (four batches, its first equal to phase 4's bit for bit)
+   beside phase 4's; K3 on the flagship's merge rows at the tuned width.
 4c. The pad-id entry point ``deposit_cuda.pad_lookup`` at 393,216 points:
    K7 must have been launched.
 4d. The key entry point ``deposit_cuda.packed_key_lookup`` at 393,216
@@ -109,8 +127,8 @@ Phases (each raises on failure, and nothing is caught):
 5. One JSON line of kernel results, the card line, and the last line
    ``{"ok": true, "device": {...}}``.
 
-Launch counts are set to 0 just before each of 4, 4b, 4g, 4e, 4f, 4c and
-4d and read just after it. Exits non-zero, with no result line, where there
+Launch counts are set to 0 just before each of 4, 4b, 4g, 4e, 4f, 4h (run
+A), 4c and 4d and read just after it. Exits non-zero, with no result line, where there
 is no CUDA device or no repository beside the script.
 """
 
@@ -875,7 +893,7 @@ FUSED_WIDE_POINT_BUDGET = 2500
 
 def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
               card: str, wide_per_batch: int = 0,
-              per_batch: dict | None = None) -> dict:
+              per_batch: dict | None = None, keep_rows: bool = False) -> dict:
     """The batches of ``vertices`` through simulate_batch + host assembly,
     launch counts set to 0 just before and read just after; the device
     step of every batch but the first is timed (dispatch until the
@@ -884,10 +902,10 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
     cluster route at least once; each kernel named in ``per_batch`` must
     have been launched exactly that many times a batch. Returns the counts,
     the timing and the first batch's merged cloud, meta_i32 and packed
-    rows."""
+    rows; with ``keep_rows``, also every batch's (packed rows, counts)."""
     from attpc_engine_tpu_torch.detector.simulator import overflow_kinds
 
-    step_s, asm_s, rows, first = [], [], 0, None
+    step_s, asm_s, rows, first, kept = [], [], 0, None, []
     reset_counts()
     for start in range(0, len(vertices), BATCH):
         v, m = vertices[start:start + BATCH], momenta[start:start + BATCH]
@@ -912,6 +930,8 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
         if first is None:
             first = {k: out[k] for k in CLOUD_INTEGERS + ("charges",)}
             first.update(meta_i32=meta, packed=out["packed"][:total].cpu())
+        if keep_rows:
+            kept.append((out["packed"][:total].cpu().numpy(), counts))
         step_s.append(t1 - t0)
         asm_s.append(t2 - t1)
         rows += total
@@ -941,7 +961,8 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
           f"{1e3 * float(np.mean(asm_s[1:])):.3f} ms/batch; launches {launches}"
           f", K3 by route {k3} [{card}]")
     return {"launches": launches, "routes": routes, "ms_per_batch": ms,
-            "events_per_s": BATCH / float(np.mean(timed)), "first": first}
+            "events_per_s": BATCH / float(np.mean(timed)), "first": first,
+            "batches": kept}
 
 
 def compare_first(label: str, against: str, ref_first: dict,
@@ -1015,6 +1036,152 @@ def check_against_cpu(sim_gpu, vertices, momenta, n: int = 8) -> None:
           f"{c[2*n:3*n].tolist()}; total charge rel diff {dq:.3g}")
     if kept.max() > 0.02 or merged.max() > 0.02 or dq > 0.01:
         raise AssertionError("the card disagrees with the CPU reference")
+
+
+class NpzReader:
+    """The committed kinematics as a reader for ``run_reader``: the card's
+    Python has no h5py, so no HDF5 kinematics file can be read there."""
+
+    def __init__(self):
+        data = np.load(REPO / "attpc_engine_tpu_torch" / "data"
+                       / "smoke_kinematics.npz")
+        self.vertices, self.momenta = data["vertices"], data["momenta"]
+        self.proton_numbers = data["proton_numbers"]
+        self.mass_numbers = data["mass_numbers"]
+        self.n_events = len(self.vertices)
+
+    def read_range(self, start: int, stop: int):
+        return self.vertices[start:stop], self.momenta[start:stop]
+
+    def close(self) -> None:
+        pass
+
+
+class MemoryWriter:
+    """A ``write_spyral_pool`` writer that keeps each batch's assembled
+    rows: (spyral, labels, counts, event numbers)."""
+
+    def __init__(self):
+        self.batches = []
+        self.closed = False
+
+    def write_spyral_pool(self, spyral, labels, counts, event_numbers,
+                          raw_counts=None):
+        self.batches.append((spyral, labels, np.asarray(counts),
+                             np.asarray(event_numbers)))
+
+    def close(self) -> None:
+        self.closed = True
+
+
+def drive(config, engine, stop_event=None):
+    """``run_reader`` over the committed kinematics into a MemoryWriter on
+    the card, seed SEED, recording each dispatch's budgets (DetectorSimulator
+    .simulate_batch's event_start, n_steps and point_budget). Returns (stats,
+    writer, dispatches, wall seconds)."""
+    from attpc_engine_tpu_torch.detector import simulator
+
+    calls = []
+    real = simulator.DetectorSimulator.simulate_batch
+
+    def spy(self, vertices, momenta, **kw):
+        calls.append({k: kw.get(k) for k in ("event_start", "n_steps",
+                                             "point_budget", "uniq_budget",
+                                             "out_budget")})
+        return real(self, vertices, momenta, **kw)
+
+    writer = MemoryWriter()
+    simulator.DetectorSimulator.simulate_batch = spy
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = simulator.run_reader(config, NpzReader(), writer,
+                                     engine=engine, seed=SEED,
+                                     show_progress=False, auto_tune=True,
+                                     stop_event=stop_event, device="cuda")
+        wall = time.perf_counter() - t0
+    finally:
+        simulator.DetectorSimulator.simulate_batch = real
+    if not writer.closed:
+        raise AssertionError("the driver did not close its writer")
+    return stats, writer, calls, wall
+
+
+def same_rows(label: str, got, ref) -> None:
+    """Batches of assembled rows (spyral, labels, counts, events), bit for
+    bit."""
+    if len(got) != len(ref):
+        raise AssertionError(f"{label}: {len(got)} batches against "
+                             f"{len(ref)}")
+    for i, (a, b) in enumerate(zip(got, ref)):
+        if not all(np.array_equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{label}: batch {i} differs")
+
+
+def driver_path(sim, phase4: dict, card: str) -> dict:
+    """Phase 4h (see the module docstring). ``phase4`` is phase 4's result
+    with every batch's packed rows."""
+    from attpc_engine_tpu_torch.detector import EngineParams
+
+    defaults = EngineParams()
+    ref = []
+    for i, (packed, counts) in enumerate(phase4["batches"]):
+        events = np.arange(i * BATCH, i * BATCH + len(counts))
+        spyral, labels = sim.assemble_spyral_ordered(packed, counts, events,
+                                                     SEED)
+        ref.append((spyral, labels, counts, events))
+    reset_counts()
+    stats, writer, calls, wall = drive(
+        sim.config, EngineParams(events_per_batch=BATCH))
+    launches, routes = read_counts(), read_routes()
+    budgets = stats["budgets"]
+    print(f"driver run A: {stats['events']} events, {stats['rows']} rows in "
+          f"{wall:.3f} s, {stats['events'] / wall:.1f} events/s end to end; "
+          f"dispatches {calls}; tuned budgets {budgets}; launches {launches}"
+          f", K3 by route {routes['sort_rows']} [{card}]")
+    times = sorted(stats["phase_seconds"].items(), key=lambda kv: -kv[1])
+    print("driver run A phase seconds: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times))
+    if calls[0]["n_steps"] != defaults.chunk_steps or calls[0][
+            "event_start"] != 0:
+        raise AssertionError(f"driver: the first dispatch was {calls[0]}, "
+                             f"not the {defaults.chunk_steps}-step probe")
+    wider = {k: v for k, v in budgets.items()
+             if v > {"steps": defaults.n_time_steps, "point":
+                     defaults.point_budget, "uniq": defaults.uniq_budget,
+                     "cloud": defaults.cloud_cap,
+                     "out": defaults.out_budget}[k]}
+    if wider:
+        raise AssertionError(f"driver: budgets wider than the defaults "
+                             f"{wider}")
+    missing = [k for k in ("transport", "deposit_rows", "sort_rows")
+               if launches[k] == 0]
+    extra = [k for k in ("deposit", "merge_cluster", "merge_fused",
+                         "packed_key_lookup_rows", "pad_lookup",
+                         "sort_rows_wide") if launches[k] != 0]
+    if missing or extra or routes["sort_rows"]["wide"]:
+        raise AssertionError(f"driver: never launched {missing}, launched "
+                             f"off the path {extra}: {launches}")
+    same_rows("driver run A vs phase 4's rows assembled on the host",
+              writer.batches, ref)
+    print(f"driver run A vs phase 4: the assembled rows of all "
+          f"{len(ref)} batches bit-identical")
+
+    stats_b, writer_b, calls_b, wall_b = drive(
+        sim.config, EngineParams(events_per_batch=BATCH, point_budget=256),
+        stop_event=2 * BATCH)
+    first = [c for c in calls_b if c["event_start"] == 0]
+    if [c["point_budget"] for c in first] != [256, 512]:
+        raise AssertionError(f"driver run B: first batch dispatches {first},"
+                             f" expected one retry on 'point'")
+    same_rows("driver run B vs run A", writer_b.batches, writer.batches[:2])
+    print(f"driver run B (point_budget 256): first batch retried once on "
+          f"'point' ({first}); budgets {stats_b['budgets']}; rows "
+          f"bit-identical to run A's [{card}]")
+    return {"launches": launches, "routes": routes, "budgets": budgets,
+            "wall_s": wall, "events_per_s": stats["events"] / wall,
+            "phase_seconds": stats["phase_seconds"], "dispatches": calls,
+            "run_b_dispatches": calls_b, "run_b_budgets": stats_b["budgets"]}
 
 
 def main() -> int:
@@ -1132,7 +1299,7 @@ def main() -> int:
                              ("transport", "deposit_rows", "sort_rows"),
                              ("deposit", "merge_cluster", "merge_fused",
                               "packed_key_lookup_rows", "pad_lookup",
-                              "sort_rows_wide"), card),
+                              "sort_rows_wide"), card, keep_rows=True),
         "fused": main_path(sim_fused, vertices, momenta, "fused",
                            ("transport", "sort_rows", "merge_cluster",
                             "packed_key_lookup_rows"),
@@ -1171,6 +1338,29 @@ def main() -> int:
         ("deposit", "deposit_rows", "pad_lookup", "merge_cluster"), card,
         wide_per_batch=1, per_batch={"merge_fused": 1, "sort_rows": 2})
     del sim_fused_wide
+    paths["driver"] = driver_path(sim, paths["default"], card)
+    del paths["default"]["batches"]
+    tuned = paths["driver"]["budgets"]
+    sim_tuned, _, _ = flagship_simulator(
+        "cuda", n_time_steps=tuned["steps"], point_budget=tuned["point"],
+        uniq_budget=tuned["uniq"], out_budget=tuned["out"])
+    paths["tuned_step"] = main_path(
+        sim_tuned, vertices, momenta, "default at the tuned budgets",
+        ("transport", "deposit_rows", "sort_rows"),
+        ("deposit", "merge_cluster", "merge_fused", "packed_key_lookup_rows",
+         "pad_lookup", "sort_rows_wide"), card)
+    print(f"default step at the tuned budgets {tuned}: "
+          f"{paths['tuned_step']['ms_per_batch']:.3f} ms/batch, against "
+          f"{paths['default']['ms_per_batch']:.3f} at the 10,000-step window"
+          f" (phase 4) [{card}]")
+    sorts["tuned"] = check_sort(
+        flagship_sort_rows(sim_tuned, vertices, momenta),
+        "flagship merge rows at the tuned point budget", ("cluster", None),
+        card)
+    del sim_tuned
+    compare_first("tuned budgets", "phase 4 (10,000 steps, default "
+                  "budgets)", paths["default"]["first"],
+                  paths["tuned_step"]["first"])
     compare_first("fused two-stage", "fused one-stage (4b)",
                   paths["fused"]["first"], paths["fused_two_stage"]["first"])
     compare_first("retry width", "point budget 1,024",
@@ -1230,6 +1420,10 @@ def main() -> int:
             "ms_per_batch"],
         "retry_width_path_ms_per_batch": paths["retry_width"]["ms_per_batch"],
         "fused_wide_path_ms_per_batch": paths["fused_wide"]["ms_per_batch"],
+        "tuned_step_ms_per_batch": paths["tuned_step"]["ms_per_batch"],
+        "driver": {k: paths["driver"][k] for k in (
+            "budgets", "wall_s", "events_per_s", "phase_seconds",
+            "dispatches", "run_b_dispatches", "run_b_budgets")},
         "card": card}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

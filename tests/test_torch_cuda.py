@@ -548,3 +548,63 @@ def test_fused_step_on_card_agrees_with_default(cuda_device):
     gain = float(sim.config.det_params.mpgd_gain)
     torch.testing.assert_close(f["charges"] / gain, d["charges"] / gain,
                                rtol=1e-5, atol=1.0)
+
+
+class _ArrayReader:
+    """A kinematics reader over the committed events in memory (the card
+    has no h5py)."""
+
+    def __init__(self, n_events: int):
+        data = np.load(SMOKE)
+        self.vertices = data["vertices"][:n_events]
+        self.momenta = data["momenta"][:n_events]
+        self.proton_numbers = data["proton_numbers"]
+        self.mass_numbers = data["mass_numbers"]
+        self.n_events = n_events
+
+    def read_range(self, start, stop):
+        return self.vertices[start:stop], self.momenta[start:stop]
+
+    def close(self):
+        pass
+
+
+class _PoolWriter:
+    def __init__(self):
+        self.batches = []
+
+    def write_spyral_pool(self, spyral, labels, counts, event_numbers,
+                          raw_counts=None):
+        self.batches.append((spyral, labels, counts, event_numbers))
+
+    def close(self):
+        pass
+
+
+def test_run_reader_on_the_card(cuda_device):
+    """run_simulation's batch loop on the card (probe, tuning, the pinned
+    copy in flight, the writer thread): the tuned run's assembled rows
+    equal an untuned run's bit for bit, and its kept rows the CPU run's
+    within 2 % (the devices round logf differently)."""
+    from attpc_engine_tpu_torch.detector.simulator import run_reader
+
+    sim, _, _ = _simulator("cpu")
+    engine = EngineParams(n_time_steps=1000, chunk_steps=250,
+                          events_per_batch=8)
+    runs = {}
+    for name, device, auto in (("tuned", cuda_device, True),
+                               ("pinned", cuda_device, False),
+                               ("cpu", "cpu", True)):
+        writer = _PoolWriter()
+        stats = run_reader(sim.config, _ArrayReader(24), writer,
+                           engine=engine, seed=3, show_progress=False,
+                           auto_tune=auto, device=device)
+        runs[name] = (stats, writer.batches)
+    assert runs["tuned"][0]["budgets"]["steps"] == 500
+    assert runs["pinned"][0]["budgets"]["steps"] == 1000
+    assert len(runs["tuned"][1]) == len(runs["pinned"][1]) == 3
+    for a, b in zip(runs["tuned"][1], runs["pinned"][1]):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
+    kept_gpu, kept_cpu = runs["tuned"][0]["rows"], runs["cpu"][0]["rows"]
+    assert kept_gpu > 0 and abs(kept_gpu - kept_cpu) <= 0.02 * kept_cpu

@@ -8,6 +8,7 @@ module of the port imports with jax unavailable. Also home of the config
 helpers the other test_torch_* files share.
 """
 
+import ctypes
 import subprocess
 import sys
 from pathlib import Path
@@ -60,8 +61,56 @@ def test_nuclear_map_matches(za):
         b.mass, b.atomic_mass, b.isotopic_symbol, b.is_estimated)
 
 
+@pytest.fixture(params=["native", "numpy"])
+def stopping_generator(request):
+    """Both packages' stopping-power generator set to one kind: "native",
+    the C++ library built from ``native/stopping.cpp``, or "numpy", the
+    pure-Python version. The two agree only to ~1e-15 relative, so a
+    comparison must hold both packages to the same one.
+
+    The JAX package builds its library in place, where a concurrent test
+    worker can find the file half written and fall back to numpy for the
+    rest of its life. So the native case loads, for both packages, the
+    library the port builds atomically (same source, same flags); where
+    it cannot be built the case fails. The handles are restored after."""
+    import attpc_engine_tpu.native as jnative
+    import attpc_engine_tpu_torch.native as tnative
+
+    saved = (jnative._LIB, jnative._TRIED, tnative._libs.get("stopping"),
+             "stopping" in tnative._libs)
+    try:
+        if request.param == "native":
+            tnative._libs.pop("stopping", None)
+            lib = tnative.get_stopping_lib()
+            assert lib is not None, "the stopping-power library did not build"
+            jlib = ctypes.CDLL(lib._name)
+            d = ctypes.POINTER(ctypes.c_double)
+            # the signatures attpc_engine_tpu.native.get_stopping_lib sets
+            jlib.mass_stopping_power.argtypes = [
+                ctypes.c_int, ctypes.c_double, d, ctypes.c_int,
+                d, d, d, ctypes.c_int, ctypes.c_double, d,
+            ]
+            jlib.mass_stopping_power.restype = None
+            jlib.csda_range.argtypes = [d, d, ctypes.c_int, d]
+            jlib.csda_range.restype = None
+            jnative._LIB, jnative._TRIED = jlib, True
+        else:
+            tnative._libs["stopping"] = None
+            jnative._LIB, jnative._TRIED = None, True
+        yield request.param
+    finally:
+        jnative._LIB, jnative._TRIED = saved[0], saved[1]
+        if saved[3]:
+            tnative._libs["stopping"] = saved[2]
+        else:
+            tnative._libs.pop("stopping", None)
+
+
 @pytest.mark.parametrize("za", [(1, 1), (1, 2), (2, 4), (6, 12), (6, 13)])
-def test_dedx_tables_match(za):
+def test_dedx_tables_match(za, stopping_generator):
+    """The dE/dx tables of both packages, bit for bit, under one
+    stopping-power generator (``stopping_generator``), with fresh
+    GasTargets (each caches its tables)."""
     jgas = GasTarget([(1, 2, 2)], 300.0, nuclear_map)
     tgas = TGasTarget([(1, 2, 2)], 300.0, port.nuclear_map)
     jl, jd = jgas.dedx_interp_arrays(nuclear_map.get_data(*za))

@@ -71,24 +71,38 @@ def jax_state(sim) -> dict:
     }
 
 
-@pytest.fixture(scope="module", params=[1024, 4096],
-                ids=lambda pb: f"point_budget_{pb}")
+@pytest.fixture(scope="module",
+                params=[("flagship", 1024), ("flagship", 4096),
+                        ("chain", 2048)],
+                ids=["point_budget_1024", "point_budget_4096",
+                     "chain_point_budget_2048"])
 def both(request):
     """Both steps on the same batch, at the flagship's point budget and at
     4,096, the overflow retry's second doubling: merge rows of 409,600,
     which K3 sorts on its wide route on the card and the JAX package with
-    lax.sort (rows padded past 2^18 fail fits_invmem)."""
-    engine = {**ENGINE, "point_budget": request.param}
+    lax.sort (rows padded past 2^18 fail fits_invmem); and the decay chain
+    (``chain_kinematics``: four charged tracks an event, rank_bits 2) at
+    2,048 point slots and 32,768 uniq slots, which hold its four tracks'
+    deposits and merged entries (up to ~21,100 an event)."""
+    reaction, point_budget = request.param
+    engine = {**ENGINE, "point_budget": point_budget}
+    if reaction == "chain":
+        engine["uniq_budget"] = 32768
     pipeline, tiny = _tiny_setup(events_per_batch=E, n_time_steps=T)
-    vert, mom = (np.asarray(x) for x in
-                 pipeline.run_batch(E, key=jax.random.PRNGKey(5)))
-    jsim = JaxSim(tiny.config, Z, A, engine=JaxEngine(**engine))
+    if reaction == "chain":
+        vert, mom, z, a = chain_kinematics(E)
+    else:
+        vert, mom = (np.asarray(x) for x in
+                     pipeline.run_batch(E, key=jax.random.PRNGKey(5)))
+        z, a = Z, A
+    jsim = JaxSim(tiny.config, z, a, engine=JaxEngine(**engine))
     key = jax.random.PRNGKey(11)
     jout = jsim.simulate_batch(key, vert, mom, assemble=False)
     keys_e = jax.vmap(jax.random.split)(event_keys(key, E, 0))[:, 0]
     noise = _jax_fano_noise(keys_e, T, E * jsim.k_tracks, CHUNK)
-    tsim = DetectorSimulator(torch_config(), Z, A,
+    tsim = DetectorSimulator(torch_config(), z, a,
                              engine=EngineParams(**engine), device="cpu")
+    assert tsim.k_tracks == (4 if reaction == "chain" else 2)
     tsim.from_jax_state(jax_state(jsim))
     tout = tsim.simulate_batch(vert, mom, noise=noise, assemble=False)
     jnp_out = {k: np.asarray(v) for k, v in jout.items()}
@@ -100,6 +114,35 @@ def _charge_bound(q):
     """Per row: 2^-16 of its event's total charge."""
     per_event = np.abs(q.reshape(E, -1)).astype(np.float64).sum(axis=1)
     return np.repeat(per_event * 2.0**-16, q.shape[0] // E)
+
+
+def _moved_pixel_rows(j, t, sim) -> set:
+    """Merged rows of the decay chain whose charge is out of the per-row
+    bound because a mesh pixel fell on the neighbouring pad: the two
+    sides' transport positions differ by an ulp (XLA's CPU code and
+    PyTorch's round differently; identical positions and electrons hold the
+    deposit stage to rtol 1e-5, test_fused_merge_deposit_matches_jax), and
+    a pixel at an mm cell edge changes cell. Such rows come in (event, tb)
+    groups of two or more whose differences cancel within the bound, and
+    are at most 1 in 10,000 rows. Empty for the flagship cases, which must
+    hold the bound on every row."""
+    if sim.k_tracks != 4:
+        return set()
+    qj, qt = j["charges"], t["charges"]
+    bound = _charge_bound(qj)
+    diff = qt.astype(np.float64) - qj
+    out = np.nonzero(np.abs(diff) > bound)[0]
+    u = len(qj) // E
+    groups = {}
+    for i in out:
+        groups.setdefault((int(i) // u, int(j["tbs_i"][i])), []).append(i)
+    for (ev, tb), rows in groups.items():
+        assert len(rows) >= 2, (ev, tb)
+        same_tb = np.nonzero((j["tbs_i"][ev * u:(ev + 1) * u] == tb)
+                             & j["cloud_valid"][ev * u:(ev + 1) * u])[0]
+        assert abs(diff[ev * u + same_tb].sum()) <= bound[ev * u], (ev, tb)
+    assert len(out) <= max(2, int(j["cloud_valid"].sum()) // 10000)
+    return set(groups)
 
 
 def test_merged_cloud_integers_exact(both):
@@ -119,10 +162,14 @@ def test_meta_exact_except_near_threshold_rows(both):
 
 
 def test_charges_within_event_prefix_bound(both):
-    j, t, _ = both
+    j, t, sim = both
     qj, qt = j["charges"], t["charges"]
     bound = _charge_bound(qj)
-    assert (np.abs(qt.astype(np.float64) - qj) <= bound).all()
+    moved = _moved_pixel_rows(j, t, sim)
+    u = len(qj) // E
+    in_moved = np.array([(i // u, int(tb)) in moved
+                         for i, tb in enumerate(j["tbs_i"])])
+    assert (np.abs(qt.astype(np.float64) - qj) <= bound)[~in_moved].all()
     exact = (qt == qj).mean()
     assert exact > 0.5  # most runs are bit-identical
 
@@ -132,6 +179,7 @@ def test_packed_rows_exact_but_near_threshold(both):
     thr = float(sim.config.elec_params.adc_threshold)
     resp_max = sim._resp_max
     per_event_bound = _charge_bound(j["charges"]).reshape(E, -1)[:, 0]
+    moved = _moved_pixel_rows(j, t, sim)
     rows = {}
     for name, out in (("jax", j), ("port", t)):
         counts = out["spyral_counts"]
@@ -143,12 +191,16 @@ def test_packed_rows_exact_but_near_threshold(both):
     only = set(rows["jax"]) ^ set(rows["port"])
     for key in only:
         q = rows["jax"].get(key, rows["port"].get(key))
+        if (key[0], key[1] >> 22) in moved:
+            continue
         assert abs(resp_max * q - thr) <= resp_max * per_event_bound[key[0]]
     assert len(only) <= max(1, n_rows // 1000)
     both_keys = set(rows["jax"]) & set(rows["port"])
     same = sum(rows["jax"][k] == rows["port"][k] for k in both_keys)
     for k in both_keys:
-        assert abs(rows["jax"][k] - rows["port"][k]) <= per_event_bound[k[0]]
+        if (k[0], k[1] >> 22) not in moved:
+            assert (abs(rows["jax"][k] - rows["port"][k])
+                    <= per_event_bound[k[0]])
     assert same / len(both_keys) > 0.5
     # within each event, rows descend in integer tb, as the JAX pool does
     for name, out in (("jax", j), ("port", t)):
@@ -290,11 +342,10 @@ def _random_walk_tracks():
                 track_labels=labels, n_events=e, tracks_per_event=k)
 
 
-def _chain_tracks():
-    """The decay chain of tests/test_end_to_end.py:182-216, 10B(3He,a)9B*
-    -> a + 5Li -> a + p: four charged tracks per event (rank_bits 2),
-    kinematics sampled by the JAX pipeline, transported by the port on
-    the CPU; the deposit stage's inputs are taken from the port's step."""
+def chain_kinematics(e: int):
+    """``e`` events of the decay chain of tests/test_end_to_end.py:182-216,
+    10B(3He,a)9B* -> a + 5Li -> a + p, sampled by the JAX pipeline: (vertices,
+    momenta, proton numbers, mass numbers)."""
     from attpc_engine_tpu import nuclear_map
     from attpc_engine_tpu.kinematics import (
         Decay,
@@ -305,7 +356,6 @@ def _chain_tracks():
         Reaction,
     )
     from attpc_engine_tpu.nuclear import GasTarget
-    from attpc_engine_tpu_torch.detector import simulator
 
     gas = GasTarget([(1, 2, 2)], 300.0, nuclear_map)
     get = nuclear_map.get_data
@@ -320,10 +370,18 @@ def _chain_tracks():
         target_material=KinematicsTargetMaterial(
             material=gas, z_range=(0.2, 0.8), rho_sigma=0.005),
     )
-    e = 2
     vert, mom = (np.asarray(x) for x in
                  pipeline.run_batch(e, key=jax.random.PRNGKey(31)))
-    z, a = pipeline.get_proton_numbers(), pipeline.get_mass_numbers()
+    return vert, mom, pipeline.get_proton_numbers(), pipeline.get_mass_numbers()
+
+
+def _chain_tracks():
+    """The decay chain (``chain_kinematics``): four charged tracks per
+    event (rank_bits 2), transported by the port on the CPU; the deposit
+    stage's inputs are taken from the port's step."""
+    from attpc_engine_tpu_torch.detector import simulator
+
+    vert, mom, z, a = chain_kinematics(2)
     sim = DetectorSimulator(torch_config(), z, a, device="cpu",
                             engine=EngineParams(n_time_steps=T,
                                                 chunk_steps=CHUNK,

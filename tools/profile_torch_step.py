@@ -23,6 +23,13 @@ With ``--fused`` the K5 span (``merge_fused``) names the route K5 took
 launch count are printed beside ``FUSED_BEFORE``, the same profile of the
 fused step when K5 was ``pack64``, K3 and the tail kernel on every width.
 
+``--tuned`` profiles the default step at the window and budgets that
+``run_simulation``'s auto-tuning gives the flagship (its batch loop,
+``simulator.run_reader``, run over the first batch), then the whole loop
+over the 1,536 committed events under the profiler: its wall time, its
+kernels' device time and the device's idle share end to end, and its
+phase times.
+
 ``--transport-steps`` instead builds K1 (``csrc/transport.cu``) with
 ``-DATTPC_K1_STEPS``, runs one 500-step window of the flagship batch's 768
 tracks, with the fast paths and with ``force_ieee`` (each checked against
@@ -380,15 +387,18 @@ def main() -> int:
         return 0
     fused = "--fused" in args
     rows_before = "--rows-before" in args
+    tuned = "--tuned" in args
     lookup = "one_stage"
     if "--lookup" in args:
         i = args.index("--lookup")
         lookup = args[i + 1]
         del args[i:i + 2]
-    args = [a for a in args if a not in ("--fused", "--rows-before")]
+    args = [a for a in args if a not in ("--fused", "--rows-before",
+                                         "--tuned")]
     print(f"card: {chip_smoke.card_line()}; configuration "
           f"{f'fused, lookup {lookup}' if fused else 'default'}"
-          f"{', rows built as before the rows kernel' if rows_before else ''}")
+          f"{', rows built as before the rows kernel' if rows_before else ''}"
+          f"{', at the tuned budgets' if tuned else ''}")
     if rows_before:
         deposition.deposit_rows = functools.partial(
             deposition.deposit_rows_plain,
@@ -396,6 +406,8 @@ def main() -> int:
     for (mod, attr), name in STAGES.items():
         setattr(mod, attr, _ranged(name, getattr(mod, attr)))
     engine = dict(merge="fused", lookup=lookup) if fused else {}
+    if tuned:
+        engine.update(tuned_budgets())
     sim, vert, mom = chip_smoke.flagship_simulator("cuda", **engine)
     b = chip_smoke.BATCH
 
@@ -452,9 +464,52 @@ def main() -> int:
               f"kernel device time {dev_us / 1e3:.3f} ms, idle share "
               f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}, {n_launches} "
               f"launches; before the cluster route: {FUSED_BEFORE}")
+    if tuned:
+        profile_driver(sim)
     if args:
         prof.export_chrome_trace(args[0])
     return 0
+
+
+def tuned_budgets() -> dict:
+    """The EngineParams fields that the driver's auto-tuning gives the
+    flagship: its batch loop run over the first batch."""
+    from attpc_engine_tpu_torch.detector import EngineParams, simulator
+
+    sim, _, _ = chip_smoke.flagship_simulator("cuda")
+    stats = simulator.run_reader(
+        sim.config, chip_smoke.NpzReader(), chip_smoke.MemoryWriter(),
+        engine=EngineParams(events_per_batch=chip_smoke.BATCH), seed=1,
+        show_progress=False, stop_event=chip_smoke.BATCH, device="cuda")
+    b = stats["budgets"]
+    print(f"tuned budgets {b}")
+    return {"n_time_steps": b["steps"], "point_budget": b["point"],
+            "uniq_budget": b["uniq"], "out_budget": b["out"]}
+
+
+def profile_driver(sim) -> None:
+    """The driver's batch loop over the 1,536 committed events under the
+    profiler: wall, kernels' device time, device idle share, phases."""
+    from attpc_engine_tpu_torch.detector import EngineParams, simulator
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stats = simulator.run_reader(
+            sim.config, chip_smoke.NpzReader(), chip_smoke.MemoryWriter(),
+            engine=EngineParams(events_per_batch=chip_smoke.BATCH), seed=1,
+            show_progress=False, device="cuda")
+        wall = time.perf_counter() - t0
+    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.key not in STAGES.values())
+    phases = ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+        stats["phase_seconds"].items(), key=lambda kv: -kv[1]))
+    print(f"driver over {stats['events']} events under the profiler: wall "
+          f"{wall:.3f} s ({stats['events'] / wall:.1f} events/s), kernel "
+          f"device time {dev_us / 1e6:.4f} s, device idle share "
+          f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}; budgets "
+          f"{stats['budgets']}; phase seconds: {phases}")
 
 
 if __name__ == "__main__":
