@@ -85,7 +85,8 @@ _MASK32 = 0xFFFFFFFF
 _PHILOX_M = (0xD2511F53, 0xCD9E8D57)
 _PHILOX_W = (0x9E3779B9, 0xBB67AE85)
 FANO_STREAM = 0  # Philox counter word 2 of the Fano noise
-WIGGLE_STREAM = 1  # ... and of the raw-cloud TB wiggle
+WIGGLE_STREAM = 1  # ... and of the raw-cloud TB wiggle; the kinematics
+# draws take 2 and up (kinematics.pipeline.KINEMATICS_STREAM)
 
 
 def _mulhilo32(a: int, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

@@ -120,6 +120,30 @@ Phases (each raises on failure, and nothing is caught):
    events/s, and the default step alone at run A's tuned window and
    budgets (four batches, its first equal to phase 4's bit for bit)
    beside phase 4's; K3 on the flagship's merge rows at the tuned width.
+4k. The kinematics stage on the card at full width (no kernel of the port:
+   it is PyTorch on the card, as the JAX package's is XLA): four cases of
+   65,536 events each, ``run_kinematics_pipeline``'s default batch, through
+   ``run_kinematics`` into an in-memory writer: (A) the flagship (12C(d,p)
+   at 120 MeV, ground state, polar angle uniform in [0, pi], no target),
+   (B) the flagship through D2 at 300 Torr (z in [0.2, 0.8] m, rho sigma
+   0.007 m), (C) the three-step chain 10B(3He,4He)9B, 9B -> 4He + 5Li,
+   5Li -> 4He + p, (D) 12C(d,p) at 16 MeV with Ex uniform in [0, 30] MeV
+   (about 0.55 of lanes accepted a draw). Each: momentum conserved on all
+   events within 1e-8 MeV; its first 4,096 events equal to the port's CPU
+   run of the same seed (accepted lanes and the draw that accepted each
+   exact, momenta within 1e-9 MeV, vertices within 1e-12 m); its number of
+   draws printed, and (C) and (D) must need more than one. No kernel may
+   launch. Printed: (A)'s events/s, sampling plus the copy to the host,
+   warm (mean of five runs).
+4i. The two-stage chain on the card: the first 1,536 events of 4k's (A)
+   through the driver loop as phase 4h runs the committed ones
+   (``run_reader``, ``EngineParams(events_per_batch=384)``,
+   ``auto_tune=True``, a writer of assembled rows): the first dispatch the
+   probe, the tuned budgets no wider than the defaults, K1, the
+   deposit-rows kernel and K3 (cluster route only) launched, K2 not; every
+   assembled row well formed; eight events of the first batch agree with
+   the same eight run on the CPU through the plain versions. Printed: its
+   end-to-end events/s.
 4c. The pad-id entry point ``deposit_cuda.pad_lookup`` at 393,216 points:
    K7 must have been launched.
 4d. The key entry point ``deposit_cuda.packed_key_lookup`` at 393,216
@@ -128,7 +152,7 @@ Phases (each raises on failure, and nothing is caught):
    ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each of 4, 4b, 4g, 4e, 4f, 4h (run
-A), 4c and 4d and read just after it. Exits non-zero, with no result line, where there
+A), 4k, 4i, 4c and 4d and read just after it. Exits non-zero, with no result line, where there
 is no CUDA device or no repository beside the script.
 """
 
@@ -1038,23 +1062,30 @@ def check_against_cpu(sim_gpu, vertices, momenta, n: int = 8) -> None:
         raise AssertionError("the card disagrees with the CPU reference")
 
 
-class NpzReader:
-    """The committed kinematics as a reader for ``run_reader``: the card's
+class ArrayReader:
+    """Events held in arrays as a reader for ``run_reader``: the card's
     Python has no h5py, so no HDF5 kinematics file can be read there."""
 
-    def __init__(self):
-        data = np.load(REPO / "attpc_engine_tpu_torch" / "data"
-                       / "smoke_kinematics.npz")
-        self.vertices, self.momenta = data["vertices"], data["momenta"]
-        self.proton_numbers = data["proton_numbers"]
-        self.mass_numbers = data["mass_numbers"]
-        self.n_events = len(self.vertices)
+    def __init__(self, vertices, momenta, proton_numbers, mass_numbers):
+        self.vertices, self.momenta = vertices, momenta
+        self.proton_numbers, self.mass_numbers = proton_numbers, mass_numbers
+        self.n_events = len(vertices)
 
     def read_range(self, start: int, stop: int):
         return self.vertices[start:stop], self.momenta[start:stop]
 
     def close(self) -> None:
         pass
+
+
+class NpzReader(ArrayReader):
+    """The committed kinematics as a reader for ``run_reader``."""
+
+    def __init__(self):
+        data = np.load(REPO / "attpc_engine_tpu_torch" / "data"
+                       / "smoke_kinematics.npz")
+        super().__init__(data["vertices"], data["momenta"],
+                         data["proton_numbers"], data["mass_numbers"])
 
 
 class MemoryWriter:
@@ -1074,11 +1105,11 @@ class MemoryWriter:
         self.closed = True
 
 
-def drive(config, engine, stop_event=None):
-    """``run_reader`` over the committed kinematics into a MemoryWriter on
-    the card, seed SEED, recording each dispatch's budgets (DetectorSimulator
-    .simulate_batch's event_start, n_steps and point_budget). Returns (stats,
-    writer, dispatches, wall seconds)."""
+def drive(config, engine, stop_event=None, reader=None):
+    """``run_reader`` over ``reader`` (the committed kinematics by default)
+    into a MemoryWriter on the card, seed SEED, recording each dispatch's
+    budgets (DetectorSimulator.simulate_batch's event_start, n_steps and
+    point_budget). Returns (stats, writer, dispatches, wall seconds)."""
     from attpc_engine_tpu_torch.detector import simulator
 
     calls = []
@@ -1095,7 +1126,7 @@ def drive(config, engine, stop_event=None):
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stats = simulator.run_reader(config, NpzReader(), writer,
+        stats = simulator.run_reader(config, reader or NpzReader(), writer,
                                      engine=engine, seed=SEED,
                                      show_progress=False, auto_tune=True,
                                      stop_event=stop_event, device="cuda")
@@ -1118,12 +1149,42 @@ def same_rows(label: str, got, ref) -> None:
             raise AssertionError(f"{label}: batch {i} differs")
 
 
+def check_driver_run(label: str, calls: list, budgets: dict, launches: dict,
+                     routes: dict) -> None:
+    """An auto-tuned driver run of the default configuration: the first
+    dispatch is the probe, the tuned budgets are no wider than the
+    defaults, K1, the deposit-rows kernel and K3 (cluster route only) were
+    launched and no kernel off that path."""
+    from attpc_engine_tpu_torch.detector import EngineParams
+
+    defaults = EngineParams()
+    if calls[0]["n_steps"] != defaults.chunk_steps or calls[0][
+            "event_start"] != 0:
+        raise AssertionError(f"{label}: the first dispatch was {calls[0]}, "
+                             f"not the {defaults.chunk_steps}-step probe")
+    wider = {k: v for k, v in budgets.items()
+             if v > {"steps": defaults.n_time_steps, "point":
+                     defaults.point_budget, "uniq": defaults.uniq_budget,
+                     "cloud": defaults.cloud_cap,
+                     "out": defaults.out_budget}[k]}
+    if wider:
+        raise AssertionError(f"{label}: budgets wider than the defaults "
+                             f"{wider}")
+    missing = [k for k in ("transport", "deposit_rows", "sort_rows")
+               if launches[k] == 0]
+    extra = [k for k in ("deposit", "merge_cluster", "merge_fused",
+                         "packed_key_lookup_rows", "pad_lookup",
+                         "sort_rows_wide") if launches[k] != 0]
+    if missing or extra or routes["sort_rows"]["wide"]:
+        raise AssertionError(f"{label}: never launched {missing}, launched "
+                             f"off the path {extra}: {launches}")
+
+
 def driver_path(sim, phase4: dict, card: str) -> dict:
     """Phase 4h (see the module docstring). ``phase4`` is phase 4's result
     with every batch's packed rows."""
     from attpc_engine_tpu_torch.detector import EngineParams
 
-    defaults = EngineParams()
     ref = []
     for i, (packed, counts) in enumerate(phase4["batches"]):
         events = np.arange(i * BATCH, i * BATCH + len(counts))
@@ -1142,26 +1203,7 @@ def driver_path(sim, phase4: dict, card: str) -> dict:
     times = sorted(stats["phase_seconds"].items(), key=lambda kv: -kv[1])
     print("driver run A phase seconds: " + ", ".join(
         f"{k} {v:.4f}" for k, v in times))
-    if calls[0]["n_steps"] != defaults.chunk_steps or calls[0][
-            "event_start"] != 0:
-        raise AssertionError(f"driver: the first dispatch was {calls[0]}, "
-                             f"not the {defaults.chunk_steps}-step probe")
-    wider = {k: v for k, v in budgets.items()
-             if v > {"steps": defaults.n_time_steps, "point":
-                     defaults.point_budget, "uniq": defaults.uniq_budget,
-                     "cloud": defaults.cloud_cap,
-                     "out": defaults.out_budget}[k]}
-    if wider:
-        raise AssertionError(f"driver: budgets wider than the defaults "
-                             f"{wider}")
-    missing = [k for k in ("transport", "deposit_rows", "sort_rows")
-               if launches[k] == 0]
-    extra = [k for k in ("deposit", "merge_cluster", "merge_fused",
-                         "packed_key_lookup_rows", "pad_lookup",
-                         "sort_rows_wide") if launches[k] != 0]
-    if missing or extra or routes["sort_rows"]["wide"]:
-        raise AssertionError(f"driver: never launched {missing}, launched "
-                             f"off the path {extra}: {launches}")
+    check_driver_run("driver", calls, budgets, launches, routes)
     same_rows("driver run A vs phase 4's rows assembled on the host",
               writer.batches, ref)
     print(f"driver run A vs phase 4: the assembled rows of all "
@@ -1182,6 +1224,221 @@ def driver_path(sim, phase4: dict, card: str) -> dict:
             "wall_s": wall, "events_per_s": stats["events"] / wall,
             "phase_seconds": stats["phase_seconds"], "dispatches": calls,
             "run_b_dispatches": calls_b, "run_b_budgets": stats_b["budgets"]}
+
+
+# run_kinematics_pipeline's default batch_size: one batch a case
+KINEMATICS_EVENTS = 65536
+KINEMATICS_CPU_EVENTS = 4096  # the leading events also run on the CPU
+KINEMATICS_TIMED = 5  # warm runs of case A timed
+
+
+def kinematics_pipeline(case: str, device):
+    """Phase 4k's cases: (A) the flagship (bench.py:160-170), (B) the
+    flagship through the gas of tests/test_kinematics.py:253-275, (C) the
+    three-step chain of tests/test_kinematics.py:47-75, (D) 12C(d,p) at 16
+    MeV with Ex uniform in [0, 30] MeV (about 0.55 of lanes accepted a
+    draw)."""
+    from attpc_engine_tpu_torch import nuclear_map
+    from attpc_engine_tpu_torch.kinematics import (
+        Decay,
+        ExcitationGaussian,
+        ExcitationUniform,
+        KinematicsPipeline,
+        KinematicsTargetMaterial,
+        PolarUniform,
+        Reaction,
+    )
+    from attpc_engine_tpu_torch.nuclear import GasTarget
+
+    d = nuclear_map.get_data
+    target = None
+    if case in "AB":
+        steps = [Reaction(d(1, 2), d(6, 12), d(1, 1))]
+        exc = [ExcitationGaussian(0.0, 0.0)]
+        beam = 120.0
+        if case == "B":
+            target = KinematicsTargetMaterial(
+                GasTarget([(1, 2, 2)], 300.0, nuclear_map), (0.2, 0.8), 0.007)
+    elif case == "C":
+        steps = [Reaction(d(5, 10), d(2, 3), d(2, 4)),
+                 Decay(d(5, 9), d(2, 4)), Decay(d(3, 5), d(2, 4))]
+        exc = [ExcitationGaussian(16.8, 0.2), ExcitationGaussian(0.0, 1.25),
+               ExcitationGaussian(0.0, 0.0)]
+        beam = 24.0
+    else:
+        steps = [Reaction(d(6, 12), d(1, 2), d(1, 1))]
+        exc = [ExcitationUniform(0.0, 30.0)]
+        beam = 16.0
+    return KinematicsPipeline(steps, exc,
+                              [PolarUniform(0.0, np.pi) for _ in steps], beam,
+                              target_material=target, device=device)
+
+
+class KinematicsMemoryWriter:
+    """A ``run_kinematics`` writer that keeps each batch (the card has no
+    h5py for ``KinematicsWriter``)."""
+
+    def __init__(self):
+        self.batches = []
+        self.closed = False
+
+    def write_batch(self, vertices, momenta) -> None:
+        self.batches.append((vertices, momenta))
+
+    def close(self) -> None:
+        self.closed = True
+
+
+def sample_kinematics(pipe, seed: int = SEED):
+    """One ``run_kinematics`` batch of KINEMATICS_EVENTS events on the card
+    into a KinematicsMemoryWriter. Returns (vertices, momenta, stats,
+    seconds: sampling plus the copy to the host)."""
+    from attpc_engine_tpu_torch.kinematics import run_kinematics
+
+    writer = KinematicsMemoryWriter()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = run_kinematics(pipe, KINEMATICS_EVENTS, writer,
+                           batch_size=KINEMATICS_EVENTS, seed=seed,
+                           show_progress=False, device="cuda")
+    wall = time.perf_counter() - t0
+    if not writer.closed or len(writer.batches) != 1:
+        raise AssertionError(f"run_kinematics: {len(writer.batches)} batches, "
+                             f"closed {writer.closed}")
+    vertices, momenta = writer.batches[0]
+    return vertices, momenta, stats, wall
+
+
+def kinematics_path(card: str) -> dict:
+    """Phase 4k (see the module docstring). Returns the launch counts (the
+    stage launches none of the port's kernels), each case's draws and
+    checks, case A's rate and its events for phase 4i."""
+    reset_counts()
+    cases = {}
+    events_a = None
+    for case in "ABCD":
+        pipe = kinematics_pipeline(case, "cuda")
+        vertices, momenta, stats, wall = sample_kinematics(pipe)
+        n_nuclei = pipe.n_nuclei
+        if (vertices.shape != (KINEMATICS_EVENTS, 3)
+                or momenta.shape != (KINEMATICS_EVENTS, n_nuclei, 4)
+                or not (np.isfinite(vertices).all()
+                        and np.isfinite(momenta).all())):
+            raise AssertionError(f"4k ({case}): malformed events")
+        # initial = target + projectile; final = the ejectile, each decay's
+        # residual_1 and the last residual
+        initial = momenta[:, 0] + momenta[:, 1]
+        final = (momenta[:, 2] + momenta[:, 4:n_nuclei - 1:2].sum(axis=1)
+                 + momenta[:, n_nuclei - 1])
+        conservation = float(np.abs(initial - final).max())
+        if conservation > 1e-8:
+            raise AssertionError(f"4k ({case}): momentum not conserved, "
+                                 f"{conservation} MeV")
+        gpu = pipe.sample_events(KINEMATICS_EVENTS, SEED, device="cuda")
+        if not (np.array_equal(gpu.momenta.cpu().numpy(), momenta)
+                and np.array_equal(gpu.vertices.cpu().numpy(), vertices)
+                and bool(gpu.accepted.all())):
+            raise AssertionError(f"4k ({case}): sample_events differs from "
+                                 f"run_kinematics")
+        m = KINEMATICS_CPU_EVENTS
+        cpu = pipe.sample_events(m, SEED, device="cpu")
+        dp = float((gpu.momenta[:m].cpu() - cpu.momenta).abs().max())
+        dv = float((gpu.vertices[:m].cpu() - cpu.vertices).abs().max())
+        same_at = torch.equal(gpu.accepted_at[:m].cpu(), cpu.accepted_at)
+        if not (torch.equal(gpu.accepted[:m].cpu(), cpu.accepted) and same_at
+                and dp <= 1e-9 and dv <= 1e-12):
+            raise AssertionError(f"4k ({case}): the card disagrees with the "
+                                 f"CPU: draws equal {same_at}, |dp| {dp}, "
+                                 f"|dv| {dv}")
+        at = gpu.accepted_at.cpu().numpy()
+        draws = int(stats["draws"][0])
+        if case in "CD" and draws < 2:
+            raise AssertionError(f"4k ({case}): {draws} draw, expected more")
+        cases[case] = {
+            "reaction": str(pipe), "draws": draws,
+            "resampled_share": float((at > 0).mean()),
+            "card_vs_cpu_max_abs_mev": dp, "card_vs_cpu_max_abs_m": dv,
+            "momentum_conservation_max_abs_mev": conservation,
+            "first_run_s": wall,
+        }
+        print(f"4k ({case}) {pipe}: {KINEMATICS_EVENTS} events in {draws} "
+              f"draws ({100 * cases[case]['resampled_share']:.3f} % of lanes "
+              f"drew again), first run {wall:.4f} s; first {m} equal to the "
+              f"CPU run (draws exact, |dp| {dp:.3g} MeV, |dv| {dv:.3g} m); "
+              f"momentum conserved within {conservation:.3g} MeV [{card}]")
+        if case == "A":
+            events_a = (vertices, momenta, pipe.get_proton_numbers(),
+                        pipe.get_mass_numbers())
+            times = [sample_kinematics(pipe)[3]
+                     for _ in range(KINEMATICS_TIMED)]
+            cases[case]["warm_s"] = times
+    launches = read_counts()
+    if any(launches.values()):
+        raise AssertionError(f"4k: the kinematics stage launched kernels "
+                             f"{launches}")
+    rate = KINEMATICS_EVENTS / float(np.mean(cases["A"]["warm_s"]))
+    print(f"4k (A) kinematics, sampling plus the copy to the host, warm: "
+          f"{rate:.1f} events/s (mean of {KINEMATICS_TIMED} runs of "
+          f"{KINEMATICS_EVENTS} events: "
+          f"{[round(1e3 * t, 3) for t in cases['A']['warm_s']]} ms) [{card}]")
+    return {"launches": launches, "routes": read_routes(), "cases": cases,
+            "events_per_s": rate, "events_a": events_a}
+
+
+def check_spyral_rows(sim, batches, n_events: int) -> int:
+    """``check_rows``'s checks on the assembled Spyral rows of a
+    MemoryWriter's batches (spyral [n, 8]: x, y, z, amplitude, integral,
+    pad, tb, pad size): finite, amplitude in (0, 4095], tb in [0, 512),
+    pads in [0, 10240), labels of the simulated nuclei, one count an event.
+    Returns the rows' count."""
+    rows = events = 0
+    for spyral, labels, counts, event_numbers in batches:
+        total = int(counts.sum())
+        ok = (
+            spyral.shape == (total, 8) and len(labels) == total
+            and counts.shape == event_numbers.shape
+            and np.isfinite(spyral).all()
+            and ((spyral[:, 3] > 0) & (spyral[:, 3] <= 4095)).all()
+            and ((spyral[:, 6] >= 0) & (spyral[:, 6] < 512)).all()
+            and ((spyral[:, 5] >= 0) & (spyral[:, 5] < 10240)).all()
+            and np.isin(labels, sim.sim_indices).all()
+        )
+        if not ok:
+            raise AssertionError("malformed Spyral rows")
+        rows += total
+        events += len(counts)
+    if events != n_events or rows == 0:
+        raise AssertionError(f"{events} events, {rows} rows written")
+    return rows
+
+
+def kinematics_driver_path(sim, events_a, card: str) -> dict:
+    """Phase 4i (see the module docstring): the first 1,536 events of 4k's
+    case A through the driver loop, as phase 4h runs the committed ones."""
+    from attpc_engine_tpu_torch.detector import EngineParams
+
+    vertices, momenta, z, a = events_a
+    flagship = NpzReader()
+    if not (np.array_equal(z, flagship.proton_numbers)
+            and np.array_equal(a, flagship.mass_numbers)):
+        raise AssertionError("4i: case A's nuclei are not the flagship's")
+    n = 4 * BATCH
+    reader = ArrayReader(vertices[:n], momenta[:n], z, a)
+    reset_counts()
+    stats, writer, calls, wall = drive(
+        sim.config, EngineParams(events_per_batch=BATCH), reader=reader)
+    launches, routes = read_counts(), read_routes()
+    budgets = stats["budgets"]
+    check_driver_run("4i", calls, budgets, launches, routes)
+    rows = check_spyral_rows(sim, writer.batches, n)
+    print(f"4i, the two-stage chain: {stats['events']} card-sampled events, "
+          f"{rows} rows in {wall:.3f} s, {stats['events'] / wall:.1f} "
+          f"events/s end to end; tuned budgets {budgets}; launches "
+          f"{launches}, K3 by route {routes['sort_rows']} [{card}]")
+    check_against_cpu(sim, vertices[:BATCH], momenta[:BATCH])
+    return {"launches": launches, "routes": routes, "budgets": budgets,
+            "wall_s": wall, "events_per_s": stats["events"] / wall,
+            "rows": rows, "phase_seconds": stats["phase_seconds"]}
 
 
 def main() -> int:
@@ -1370,6 +1627,9 @@ def main() -> int:
     compare_clouds(paths["default"]["first"], paths["fused"]["first"],
                    float(sim.config.det_params.mpgd_gain))
     check_against_cpu(sim, vertices, momenta)
+    paths["kinematics"] = kinematics_path(card)
+    paths["kinematics_driver"] = kinematics_driver_path(
+        sim, paths["kinematics"].pop("events_a"), card)
 
     rows = []
     for name, (_, _, src, replaces, path) in KERNELS.items():
@@ -1424,6 +1684,10 @@ def main() -> int:
         "driver": {k: paths["driver"][k] for k in (
             "budgets", "wall_s", "events_per_s", "phase_seconds",
             "dispatches", "run_b_dispatches", "run_b_budgets")},
+        "kinematics": {k: paths["kinematics"][k] for k in (
+            "cases", "events_per_s")},
+        "kinematics_driver": {k: paths["kinematics_driver"][k] for k in (
+            "budgets", "wall_s", "events_per_s", "rows", "phase_seconds")},
         "card": card}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {

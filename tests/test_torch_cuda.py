@@ -608,3 +608,44 @@ def test_run_reader_on_the_card(cuda_device):
             np.testing.assert_array_equal(x, y)
     kept_gpu, kept_cpu = runs["tuned"][0]["rows"], runs["cpu"][0]["rows"]
     assert kept_gpu > 0 and abs(kept_gpu - kept_cpu) <= 0.02 * kept_cpu
+
+
+@pytest.mark.parametrize("chain", ["chain", "resample"])
+def test_kinematics_on_the_card_equals_cpu(cuda_device, chain):
+    """The kinematics stage on the card against the CPU on the same seed:
+    accepted lanes and the draw that accepted each exact, momenta within
+    1e-9 MeV, vertices within 1e-12 m (the devices round the transcendental
+    functions differently by an ulp; the Philox words are the same)."""
+    from attpc_engine_tpu_torch.kinematics import (
+        Decay,
+        ExcitationGaussian,
+        ExcitationUniform,
+        KinematicsPipeline,
+        PolarUniform,
+        Reaction,
+    )
+
+    d = nuclear_map.get_data
+    if chain == "chain":
+        steps = [Reaction(d(5, 10), d(2, 3), d(2, 4)),
+                 Decay(d(5, 9), d(2, 4)), Decay(d(3, 5), d(2, 4))]
+        exc = [ExcitationGaussian(16.8, 0.2), ExcitationGaussian(0.0, 1.25),
+               ExcitationGaussian(0.0, 0.0)]
+        beam = 24.0
+    else:
+        steps = [Reaction(d(6, 12), d(1, 2), d(1, 1))]
+        exc = [ExcitationUniform(0.0, 30.0)]
+        beam = 16.0
+    pipe = KinematicsPipeline(steps, exc,
+                              [PolarUniform(0.0, np.pi) for _ in steps], beam,
+                              device=cuda_device)
+    gpu = pipe.sample_events(8192, seed=19)
+    cpu = pipe.sample_events(8192, seed=19, device="cpu")
+    assert gpu.draws == cpu.draws
+    assert torch.equal(gpu.accepted.cpu(), cpu.accepted)
+    assert torch.equal(gpu.accepted_at.cpu(), cpu.accepted_at)
+    assert bool(cpu.accepted.all())
+    torch.testing.assert_close(gpu.momenta.cpu(), cpu.momenta, rtol=0,
+                               atol=1e-9)
+    torch.testing.assert_close(gpu.vertices.cpu(), cpu.vertices, rtol=0,
+                               atol=1e-12)

@@ -61,6 +61,15 @@ launch's mean time over three runs, their sum, the same run's
 ``torch.sort``, the byte bound and the design's floor (1 + log2 c times
 the bound). Its table is behind the chunk rule ``sort_cuda.WIDE_CHUNK``.
 
+``--kinematics`` instead profiles the kinematics stage: chip_smoke's
+phase 4k cases A (the flagship, one draw) and D (12C(d,p) at 16 MeV with
+Ex uniform in [0, 30] MeV, ~15 draws), 65,536 events each through
+``run_kinematics`` after one warm-up run: the wall (sampling plus the copy
+to the host), the kernels' device time and the device's idle share, the
+launches, the host and device time of the draws (``draw_noise``, the
+Philox words and the noise), the parameters (``sample``) and the chain
+(``compute_chain``), and the kernels with the most device time.
+
 ``--lookups [OTHER/deposit.cu]`` instead times K2 and K7
 (``attpc_packed_key_lookup``, ``attpc_pad_lookup``) on chip_smoke's random
 cells and on the flagship's own points (the (ix, iy, tbr) of a fused
@@ -116,6 +125,47 @@ def _ranged(name, fn):
         with record_function(name):
             return fn(*a, **k)
     return wrapped
+
+
+KINEMATICS_RANGES = ("draw_noise", "sample", "compute_chain")
+
+
+def kinematics() -> None:
+    """``--kinematics`` (see the module docstring)."""
+    from attpc_engine_tpu_torch.kinematics.pipeline import KinematicsPipeline
+
+    for name in KINEMATICS_RANGES:
+        attr = f"_{name}"
+        setattr(KinematicsPipeline, attr,
+                _ranged(name, getattr(KinematicsPipeline, attr)))
+    cuda = torch.autograd.DeviceType.CUDA
+    for case in "AD":
+        pipe = chip_smoke.kinematics_pipeline(case, "cuda")
+        chip_smoke.sample_kinematics(pipe)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, _, stats, wall = chip_smoke.sample_kinematics(pipe)
+        events = prof.key_averages()
+        kern = sorted((e for e in events if e.device_type == cuda
+                       and e.key not in KINEMATICS_RANGES),
+                      key=lambda e: -e.self_device_time_total)
+        dev_us = sum(e.self_device_time_total for e in kern)
+        print(f"kinematics ({case}) {pipe}: {chip_smoke.KINEMATICS_EVENTS} "
+              f"events, {stats['draws'][0]} draws; wall {1e3 * wall:.3f} ms "
+              f"under the profiler; kernel device time {dev_us / 1e3:.3f} ms;"
+              f" device idle share {max(0.0, 1 - dev_us / 1e6 / wall):.3f};"
+              f" launches {sum(e.count for e in kern)}")
+        for e in events:
+            if e.key in KINEMATICS_RANGES and e.device_type != cuda:
+                dev = sum(d.self_device_time_total for d in events
+                          if d.key == e.key and d.device_type == cuda)
+                print(f"  {e.key:14s} host {e.cpu_time_total / 1e3:9.3f} ms,"
+                      f" device span {dev / 1e3:9.3f} ms (calls {e.count})")
+        print("  top kernels by device time (ms, launches):")
+        for e in kern[:8]:
+            print(f"  {e.self_device_time_total / 1e3:9.3f} {e.count:6d}  "
+                  f"{e.key[:90]}")
 
 
 def sort_phases() -> None:
@@ -380,6 +430,10 @@ def main() -> int:
         rest = args[args.index("--lookups") + 1:]
         print(f"card: {chip_smoke.card_line()}; K2 and K7")
         lookups(rest[0] if rest else None)
+        return 0
+    if "--kinematics" in args:
+        print(f"card: {chip_smoke.card_line()}; the kinematics stage")
+        kinematics()
         return 0
     if "--transport-steps" in args:
         print(f"card: {chip_smoke.card_line()}; K1 cycles per step")
