@@ -8,8 +8,9 @@ found under the same path there.
 This package imports ``torch`` and never ``jax``. Host modules that the JAX
 package holds without any framework code are copied here (each says which
 file it copies), because importing anything under ``attpc_engine_tpu``
-imports jax. Files of the JAX package that are used as files (the pad
-assets, ``native/*.cpp``, the writer child script) are read by path.
+imports jax; the files it uses as files (the pad assets, the writer child
+script) are copies too, and the C++ sources ``native/*.cpp`` at the
+repository's root are built by path.
 """
 
 from .nuclear.masses import NuclearDataMap, NucleusData

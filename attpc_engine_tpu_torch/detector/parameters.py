@@ -8,9 +8,8 @@ that derives the drift velocity and loads pad-plane geometry.
 
 Port details:
 
-- geometry comes from the JAX package's bundle
-  (``attpc_engine_tpu/detector/data/pad_assets.npz``), read by path so that
-  nothing under ``attpc_engine_tpu`` is imported,
+- geometry comes from the port's copy of the JAX package's bundle,
+  ``data/pad_assets.npz`` (``data/PROVENANCE.md`` names its source),
 - ``Config.device_arrays()`` builds the numpy tables of the detector step
   once, among them the ``[560, 640]`` int32 pad-id table that the pad-lookup
   kernel reads (``deposit_cuda.py``),
@@ -34,10 +33,7 @@ __all__ = ["DetectorParams", "ElectronicsParams", "PadParams", "Config", "DEFAUL
 
 DEFAULT = "Default"
 
-PAD_ASSETS = (
-    Path(__file__).resolve().parents[2]
-    / "attpc_engine_tpu" / "detector" / "data" / "pad_assets.npz"
-)
+PAD_ASSETS = Path(__file__).resolve().parents[1] / "data" / "pad_assets.npz"
 
 # pad-id table of the lookup kernel: [PAD_TABLE_NX (x cells), PAD_TABLE_NY
 # (y cells)], vetoed cells and padding hold PAD_ID_SENTINEL. The shape and

@@ -671,17 +671,24 @@ class _HostCopies:
         self.stream = torch.cuda.Stream(device) if self.cuda else None
         self.free: list[torch.Tensor] = []
 
+    def take_free(self, rows: int) -> torch.Tensor | None:
+        """The first free buffer of at least ``rows`` rows, taken out of
+        the free list by its position (``list.remove`` would compare
+        buffers with the elementwise tensor ``==``), or None."""
+        for i, buf in enumerate(self.free):
+            if buf.shape[0] >= rows:
+                return self.free.pop(i)
+        return None
+
     def start(self, src: torch.Tensor):
         if not self.cuda:
             return src
         rows = src.shape[0]
-        buf = next((b for b in self.free if b.shape[0] >= rows), None)
+        buf = self.take_free(rows)
         if buf is None:
             q = self.ROWS_QUANTUM
             buf = torch.empty((max(-(-rows // q), 1) * q, 2),
                               dtype=src.dtype, pin_memory=True)
-        else:
-            self.free.remove(buf)
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(src.device))
         self.stream.wait_event(ready)

@@ -11,9 +11,9 @@ min_event and max_event; events with an empty raw cloud are skipped.
 ``SpyralWriter`` writes from this process, from assembled batches or, as
 the reference ``SimulationWriter`` protocol's ``write``, from one event's
 raw cloud; ``SpyralWriterProc`` hands the packed device rows to one child
-process or to ``n_shards`` of them, each child the JAX package's writer
-script ``attpc_engine_tpu/io/spyral_child.py`` (it imports no package
-module and no jax), launched by path. Both take an HDF5 ``compression``
+process or to ``n_shards`` of them, each child the port's writer script
+``io/spyral_child.py`` (a copy of the JAX package's; it imports no package
+module), launched by path. Both take an HDF5 ``compression``
 filter. h5py is imported on use.
 """
 
@@ -36,10 +36,7 @@ from .response import get_response
 __all__ = ["SimulationWriter", "SpyralWriter", "SpyralWriterProc",
            "convert_to_spyral", "SPYRAL_CHILD"]
 
-SPYRAL_CHILD = (
-    Path(__file__).resolve().parents[2]
-    / "attpc_engine_tpu" / "io" / "spyral_child.py"
-)
+SPYRAL_CHILD = Path(__file__).resolve().parents[1] / "io" / "spyral_child.py"
 
 # batches in flight to the child before the parent waits for an ack
 MAX_OUTSTANDING = 4
@@ -239,8 +236,8 @@ class SpyralWriter:
 
 class SpyralWriterProc:
     """Spyral writer in child processes fed over POSIX shared memory
-    (writer.py:232-551, less its recycle path): each child is
-    ``attpc_engine_tpu/io/spyral_child.py``, launched by path, and it
+    (writer.py:232-551, less its recycle path): each child is the port's
+    ``io/spyral_child.py``, launched by path, and it
     assembles, wiggles, z-sorts and writes each batch. Its files equal
     ``SpyralWriter``'s. ``run_simulation`` ships it the packed device rows
     through ``write_packed``.

@@ -7,7 +7,11 @@ ctypes: pointers and the stream go in as ``c_void_p``, and every entry
 point returns the ``cudaError_t`` of its launches, which ``check`` turns
 into an exception. The library is built into the git-ignored ``build/``
 directory on first use, in the process that launches a kernel; nothing is
-built when a module is imported.
+built when a module is imported. Its name carries a hash of every file in
+``csrc/``, the flags and ``nvcc --version``, so that a process loads a
+library another process built from the same sources and never one built
+from other sources; concurrent first users wait on a lock in ``build/``
+for one build.
 
 The flags leave out ``--use_fast_math`` (IEEE ``logf``, ``sqrtf`` and
 division) and add ``-fmad=false``: the transport kernel must round like its
@@ -22,6 +26,8 @@ either. The other kernels do integer work only.
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import shutil
 import subprocess
@@ -35,7 +41,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("transport.cu", "deposit.cu", "deposit_rows.cu", "sort_cluster.cu",
            "merge_rows.cu", "merge_fused.cu", "merge_cluster.cu")
-LIBRARY = "libattpc_kernels.so"
+LIBRARY = "libattpc_kernels-{key}.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false",
@@ -43,7 +49,7 @@ NVCC_FLAGS = (
 )
 BUILD_TIMEOUT_S = 900
 
-_state: dict = {"lib": None, "path": None, "build_seconds": None}
+_state: dict = {"lib": None, "path": None, "build": None}
 
 
 def nvcc() -> str:
@@ -82,28 +88,56 @@ def run_parallel(cmds: list[list[str]]) -> None:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
+def source_key() -> str:
+    """Hash of the sources the library is built from: every file in
+    ``csrc/`` (the headers included), the source list, ``NVCC_FLAGS`` and
+    ``nvcc --version``."""
+    h = hashlib.sha256()
+    for path in sorted(CSRC.iterdir()):
+        if path.is_file():
+            h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
+    h.update("\0".join(SOURCES + NVCC_FLAGS).encode())
+    h.update(subprocess.run([nvcc(), "--version"], capture_output=True,
+                            check=True, timeout=60).stdout)
+    return h.hexdigest()[:16]
+
+
 def build() -> Path:
-    """Compile every source into ``build/libattpc_kernels.so`` and return its
-    path: one nvcc per source, in parallel, then one link. Raises with
-    nvcc's output if the build fails."""
+    """Path of ``build/libattpc_kernels-<source_key>.so``, compiled from
+    every source if no process has built it yet: one nvcc per source, in
+    parallel, then one link. The check and the build hold an exclusive
+    lock on ``build/kernels.lock``, so that processes started together
+    wait for one build; the library is written under a temporary name and
+    renamed into place, so that no process finds it half written. Raises
+    with nvcc's output if the build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / LIBRARY
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        objs = [str(Path(tmp) / f"{Path(s).stem}.o") for s in SOURCES]
-        run_parallel([[nvcc(), *NVCC_FLAGS, "-c", str(CSRC / s), "-o", o]
-              for s, o in zip(SOURCES, objs)])
-        lib = str(Path(tmp) / LIBRARY)
-        run_parallel([[nvcc(), *NVCC_FLAGS, "-shared", "-o", lib, *objs]])
-        os.replace(lib, out)
-    _state["build_seconds"] = time.perf_counter() - t0
+    out = BUILD_DIR / LIBRARY.format(key=source_key())
+    with open(BUILD_DIR / "kernels.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        built = not out.exists()
+        if built:
+            with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+                objs = [str(Path(tmp) / f"{Path(s).stem}.o") for s in SOURCES]
+                run_parallel([[nvcc(), *NVCC_FLAGS, "-c", str(CSRC / s),
+                               "-o", o] for s, o in zip(SOURCES, objs)])
+                lib = str(Path(tmp) / "lib.so")
+                run_parallel([[nvcc(), *NVCC_FLAGS, "-shared", "-o", lib,
+                               *objs]])
+                os.replace(lib, out)
+    _state["build"] = {"built": built, "seconds": time.perf_counter() - t0,
+                       "library": out.name}
     _state["path"] = out
     return out
 
 
-def build_seconds() -> float | None:
-    """Seconds the last ``build`` in this process took (None if none ran)."""
-    return _state["build_seconds"]
+def build_seconds() -> dict | None:
+    """This process's ``build``: {"built": True if it compiled the
+    library, False if it loaded one already built from the same sources,
+    "seconds": the build's time, or the check's and any wait's for one
+    built by another process, "library": the file's name}; None if
+    ``build`` has not run in this process."""
+    return _state["build"]
 
 
 def declare_rk4(lib: ctypes.CDLL) -> None:
@@ -150,7 +184,8 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use in this process."""
+    """The loaded kernel library, built on first use by this process or
+    loaded as another built it (``build``)."""
     if _state["lib"] is None:
         lib = ctypes.CDLL(str(_state["path"] or build()))
         _declare(lib)

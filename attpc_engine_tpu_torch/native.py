@@ -4,8 +4,10 @@
 Spyral writer's hot path (Philox TB wiggle, per-event z-sort, [n, 8] f64
 assembly, HDF5 writes through the libhdf5 bundled with h5py). Both are built
 with ``g++`` from the repository's ``native/*.cpp`` into the port's own
-git-ignored ``build/`` directory on first use; where the build or the load
-fails, callers take the pure-Python versions, which compute the same values.
+git-ignored ``build/`` directory on first use, once for each source (a
+library built by one process is loaded by the others); where the build or
+the load fails, callers take the pure-Python versions, which compute the
+same values.
 ``ATTPC_TPU_NO_NATIVE=1`` forces the Python versions.
 
 This is host code, not a device kernel.
@@ -14,6 +16,8 @@ This is host code, not a device kernel.
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import subprocess
 import tempfile
@@ -23,37 +27,54 @@ import numpy as np
 
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 _NATIVE_SRC = Path(__file__).resolve().parents[1] / "native"
+GXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _libs: dict[str, ctypes.CDLL | None] = {}
+_paths: dict[str, Path | None] = {}
 
 
 def _build(name: str, source: str) -> Path | None:
-    """Compile ``native/<source>`` into ``build/<name>``; None on failure.
+    """``build/lib<name>-<hash>.so`` compiled from ``native/<source>``, the
+    hash taken over the source, the flags and ``g++ --version``; None on
+    failure.
 
-    The library is written under a temporary name and renamed into place,
-    so that concurrent test workers never load a half-written file.
+    A process loads the library another process built from the same
+    source. The check and the build hold an exclusive lock on
+    ``build/native.lock``, so that processes started together wait for
+    one build, and the library is written under a temporary name and
+    renamed into place, so that no process loads a half-written file.
     """
-    so_path = BUILD_DIR / name
-    if so_path.exists():
-        return so_path
-    src = _NATIVE_SRC / source
+    if name not in _paths:
+        _paths[name] = _build_once(name, _NATIVE_SRC / source)
+    return _paths[name]
+
+
+def _build_once(name: str, src: Path) -> Path | None:
     if not src.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
     try:
-        subprocess.run(
-            ["g++", "-O3", "-shared", "-fPIC", "-std=c++17",
-             "-o", tmp, str(src), "-ldl"],
-            check=True, capture_output=True, timeout=300,
-        )
-        os.replace(tmp, so_path)
+        version = subprocess.run(["g++", "--version"], capture_output=True,
+                                 check=True, timeout=60).stdout
+        h = hashlib.sha256(src.read_bytes() + b"\0"
+                           + "\0".join(GXX_FLAGS).encode() + b"\0" + version)
+        so_path = BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        with open(BUILD_DIR / "native.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if so_path.exists():
+                return so_path
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            try:
+                subprocess.run(
+                    ["g++", *GXX_FLAGS, "-o", tmp, str(src), "-ldl"],
+                    check=True, capture_output=True, timeout=300)
+                os.replace(tmp, so_path)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
     except (OSError, subprocess.SubprocessError):
         return None
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
     return so_path
 
 
@@ -77,7 +98,7 @@ def spyral_io_path() -> Path | None:
     """Path of the built libspyral_io, or None."""
     if os.environ.get("ATTPC_TPU_NO_NATIVE"):
         return None
-    return _build("libspyral_io.so", "spyral_io.cpp")
+    return _build("spyral_io", "spyral_io.cpp")
 
 
 def get_spyral_io_lib() -> ctypes.CDLL | None:
@@ -154,7 +175,7 @@ def get_stopping_lib() -> ctypes.CDLL | None:
         lib = None
         so_path = (
             None if os.environ.get("ATTPC_TPU_NO_NATIVE")
-            else _build("libstopping.so", "stopping.cpp")
+            else _build("stopping", "stopping.cpp")
         )
         if so_path is not None:
             try:

@@ -1,6 +1,6 @@
-"""Utilities: phase timing and run records."""
+"""Utilities: phase timing, trace capture and run records."""
 
 from .manifest import write_run_manifest
-from .profiling import PhaseTimes, phase_timer
+from .profiling import PhaseTimes, phase_timer, trace_to
 
-__all__ = ["PhaseTimes", "phase_timer", "write_run_manifest"]
+__all__ = ["PhaseTimes", "phase_timer", "trace_to", "write_run_manifest"]

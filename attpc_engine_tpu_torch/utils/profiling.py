@@ -1,12 +1,16 @@
-"""Per-phase wall timing (copy of attpc_engine_tpu/utils/profiling.py, less its jax.profiler helper, with a lock in add)."""
+"""Per-phase wall timing and trace capture (port of
+attpc_engine_tpu/utils/profiling.py: a lock in ``PhaseTimes.add``, and
+``trace_to`` on ``torch.profiler`` in place of ``jax.profiler``)."""
 
 from __future__ import annotations
 
+import os
 import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager
 from dataclasses import dataclass, field
+from pathlib import Path
 
 
 @dataclass
@@ -39,3 +43,25 @@ def phase_timer(times: PhaseTimes, name: str):
         yield
     finally:
         times.add(name, time.perf_counter() - t0)
+
+
+@contextmanager
+def trace_to(log_dir: str | Path | None):
+    """Capture a ``torch.profiler`` trace of the block into ``log_dir``
+    (no-op if None): CPU activity, and CUDA activity where torch finds a
+    CUDA device. The trace is a Chrome trace JSON file,
+    ``trace_<pid>.json``, that TensorBoard and Perfetto open."""
+    if log_dir is None:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    log_dir = Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(str(log_dir / f"trace_{os.getpid()}.json"))

@@ -9,7 +9,8 @@ Phases (each raises on failure, and nothing is caught):
 1. The card's name and power limit (nvidia-smi); a CUDA device is required.
 2. Build the CUDA kernels from ``attpc_engine_tpu_torch/csrc`` with nvcc
    for sm_90a (one nvcc per source, in parallel) into the git-ignored build
-   directory.
+   directory, as ``libattpc_kernels-<hash of the sources>.so``; printed:
+   whether this run built it or found it built from the same sources.
 3. Each kernel against its plain PyTorch version on the card, at the shapes
    of the flagship batch (384 events): K1 transport (768 tracks, one
    500-step window; alive flags exact, positions within 1e-6 m, |dKE|
@@ -144,6 +145,27 @@ Phases (each raises on failure, and nothing is caught):
    assembled row well formed; eight events of the first batch agree with
    the same eight run on the CPU through the plain versions. Printed: its
    end-to-end events/s.
+4m. One process per slice on the card: the first 6,144 events of 4k's
+   (A), first through ``run_reader`` in this process (as 4h, auto-tuned,
+   384 events a batch; the single run), then split over three processes
+   started together on ``cuda:0`` (this script in its child mode, with
+   ``RANK`` 0-2, ``WORLD_SIZE`` 3, ``LOCAL_RANK`` 0): each resolves its
+   ids and card as ``run_simulation_multihost`` does
+   (``parallel.resolve_process``), takes its slice from
+   ``parallel.process_plan`` (2,048 events, off the 384-event grid: its
+   last batch holds 128), and runs it through ``run_reader`` at the same
+   engine parameters and seed into a writer of assembled rows. The union
+   of the three processes' rows must equal the single run's bit for bit
+   (Spyral rows, labels, counts and event numbers, in event order); every
+   process must have launched K1, the deposit-rows kernel and K3 (cluster
+   route only) and not K2, must have loaded the library phase 2 built
+   without compiling (``kernels.build_seconds()``), and must exit with 0.
+   Printed: each process's events/s, phase seconds and device memory, and
+   the three processes' events/s over the window from the first one's
+   start to the last one's end beside the single run's. The HDF5 side of
+   ``run_simulation_multihost`` (``SpyralWriterProc``'s files, the resume
+   scan, the run-number blocks) needs h5py, which the card's Python lacks:
+   tests/test_torch_parallel.py holds it on the CPU.
 4c. The pad-id entry point ``deposit_cuda.pad_lookup`` at 393,216 points:
    K7 must have been launched.
 4d. The key entry point ``deposit_cuda.packed_key_lookup`` at 393,216
@@ -152,13 +174,16 @@ Phases (each raises on failure, and nothing is caught):
    ``{"ok": true, "device": {...}}``.
 
 Launch counts are set to 0 just before each of 4, 4b, 4g, 4e, 4f, 4h (run
-A), 4k, 4i, 4c and 4d and read just after it. Exits non-zero, with no result line, where there
+A), 4k, 4i, 4m (the single run, and each process's run in that process),
+4c and 4d and read just after it. Exits non-zero, with no result line, where there
 is no CUDA device or no repository beside the script.
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -282,20 +307,19 @@ def read_routes() -> dict:
             for name, routes in ROUTES.items()}
 
 
-def flagship_simulator(device, **engine):
+def flagship_config():
+    """The flagship detector: D2 at 300 Torr, the default AT-TPC."""
     from attpc_engine_tpu_torch import nuclear_map
     from attpc_engine_tpu_torch.detector import (
         Config,
         DetectorParams,
-        DetectorSimulator,
         ElectronicsParams,
-        EngineParams,
         PadParams,
     )
     from attpc_engine_tpu_torch.nuclear import GasTarget
 
     gas = GasTarget([(1, 2, 2)], 300.0, nuclear_map)
-    config = Config(
+    return Config(
         DetectorParams(length=1.0, efield=45000.0, bfield=2.85,
                        mpgd_gain=175000, gas_target=gas, diffusion=0.277,
                        fano_factor=0.2, w_value=34.0),
@@ -304,9 +328,17 @@ def flagship_simulator(device, **engine):
                           adc_threshold=40),
         PadParams(),
     )
+
+
+def flagship_simulator(device, **engine):
+    from attpc_engine_tpu_torch.detector import (
+        DetectorSimulator,
+        EngineParams,
+    )
+
     data = np.load(REPO / "attpc_engine_tpu_torch" / "data"
                    / "smoke_kinematics.npz")
-    sim = DetectorSimulator(config, data["proton_numbers"],
+    sim = DetectorSimulator(flagship_config(), data["proton_numbers"],
                             data["mass_numbers"],
                             engine=EngineParams(events_per_batch=BATCH,
                                                 **engine),
@@ -1170,6 +1202,12 @@ def check_driver_run(label: str, calls: list, budgets: dict, launches: dict,
     if wider:
         raise AssertionError(f"{label}: budgets wider than the defaults "
                              f"{wider}")
+    check_default_launches(label, launches, routes)
+
+
+def check_default_launches(label: str, launches: dict, routes: dict) -> None:
+    """K1, the deposit-rows kernel and K3 (cluster route only) were
+    launched, and no kernel off the default step's path (K2 among them)."""
     missing = [k for k in ("transport", "deposit_rows", "sort_rows")
                if launches[k] == 0]
     extra = [k for k in ("deposit", "merge_cluster", "merge_fused",
@@ -1441,6 +1479,169 @@ def kinematics_driver_path(sim, events_a, card: str) -> dict:
             "rows": rows, "phase_seconds": stats["phase_seconds"]}
 
 
+# phase 4m: the first MULTIHOST_EVENTS of 4k's case A over
+# MULTIHOST_PROCESSES processes on one card, 2,048 events each: off the
+# 384-event batch grid, so each process's last batch holds 128 events
+MULTIHOST_EVENTS = 6144
+MULTIHOST_PROCESSES = 3
+MULTIHOST_CHILD = "--multihost-child"
+MULTIHOST_TIMEOUT_S = 600
+
+
+def rows_of(writer) -> tuple:
+    """A MemoryWriter's batches as one (spyral, labels, counts, event
+    numbers), whatever the batches' sizes."""
+    return tuple(np.concatenate([b[i] for b in writer.batches])
+                 for i in range(4))
+
+
+def multihost_child(events_path: str, out_path: str) -> int:
+    """Phase 4m's child, one process of ``run_simulation_multihost``'s
+    decomposition: its ids and card from ``RANK``, ``WORLD_SIZE`` and
+    ``LOCAL_RANK`` (``parallel.resolve_process``), its slice from
+    ``parallel.process_plan``, the slice through ``run_reader`` (the card
+    has no h5py for the HDF5 reader and writers) into a MemoryWriter. Saves
+    its rows, launch counts, ``kernels.build_seconds()``, and the run's
+    wall start and end (``time.time()``) to ``out_path``."""
+    sys.path.insert(0, str(REPO))
+    from attpc_engine_tpu_torch import kernels
+    from attpc_engine_tpu_torch.detector import EngineParams
+    from attpc_engine_tpu_torch.detector.simulator import run_reader
+    from attpc_engine_tpu_torch.parallel import process_plan, resolve_process
+
+    pid, nproc, device = resolve_process()
+    data = np.load(events_path)
+    reader = ArrayReader(data["vertices"], data["momenta"],
+                         data["proton_numbers"], data["mass_numbers"])
+    plan = process_plan(reader.n_events, pid, nproc)
+    free, total = torch.cuda.mem_get_info(device)
+    writer = MemoryWriter()
+    reset_counts()
+    t0 = time.time()
+    stats = run_reader(flagship_config(), reader, writer,
+                       engine=EngineParams(events_per_batch=BATCH), seed=SEED,
+                       show_progress=False, start_event=plan.start,
+                       stop_event=plan.stop, auto_tune=True, device=device)
+    t1 = time.time()
+    info = {"rank": pid, "world_size": nproc, "device": str(device),
+            "start": plan.start, "stop": plan.stop, "t0": t0, "t1": t1,
+            "events": stats["events"], "rows": stats["rows"],
+            "budgets": stats["budgets"],
+            "phase_seconds": stats["phase_seconds"],
+            "launches": read_counts(), "routes": read_routes(),
+            "build": kernels.build_seconds(),
+            "mem_free_total_bytes": [free, total],
+            "max_memory_allocated": torch.cuda.max_memory_allocated(device)}
+    spyral, labels, counts, events = rows_of(writer)
+    np.savez(out_path, spyral=spyral, labels=labels, counts=counts,
+             events=events, info=json.dumps(info))
+    return 0
+
+
+def multihost_path(sim, events_a, card: str) -> dict:
+    """Phase 4m (see the module docstring). ``events_a`` is 4k's case A."""
+    from attpc_engine_tpu_torch import kernels
+    from attpc_engine_tpu_torch.detector import EngineParams
+
+    vertices, momenta, z, a = events_a
+    n = MULTIHOST_EVENTS
+    reset_counts()
+    stats, writer, calls, wall = drive(
+        sim.config, EngineParams(events_per_batch=BATCH),
+        reader=ArrayReader(vertices[:n], momenta[:n], z, a))
+    launches, routes = read_counts(), read_routes()
+    check_driver_run("4m single process", calls, stats["budgets"], launches,
+                     routes)
+    single = rows_of(writer)
+    del writer
+    single_rate = n / wall
+    print(f"4m single process: {n} events, {stats['rows']} rows in "
+          f"{wall:.3f} s, {single_rate:.1f} events/s end to end; tuned "
+          f"budgets {stats['budgets']} [{card}]")
+    library = kernels.build_seconds()["library"]
+    torch.cuda.empty_cache()  # the children share the card
+    with tempfile.TemporaryDirectory() as tmp:
+        events_path = str(Path(tmp) / "events.npz")
+        np.savez(events_path, vertices=vertices[:n], momenta=momenta[:n],
+                 proton_numbers=z, mass_numbers=a)
+        procs = []
+        try:
+            for rank in range(MULTIHOST_PROCESSES):
+                env = dict(os.environ, RANK=str(rank), LOCAL_RANK="0",
+                           WORLD_SIZE=str(MULTIHOST_PROCESSES))
+                log = open(Path(tmp) / f"child{rank}.log", "w")
+                procs.append((subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     MULTIHOST_CHILD, events_path,
+                     str(Path(tmp) / f"child{rank}.npz")],
+                    stdout=log, stderr=subprocess.STDOUT, env=env,
+                    cwd=REPO), log))
+            for proc, _ in procs:
+                proc.wait(timeout=MULTIHOST_TIMEOUT_S)
+        finally:
+            for proc, log in procs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+                log.close()
+        failed = {rank: (proc.returncode,
+                         (Path(tmp) / f"child{rank}.log").read_text()[-3000:])
+                  for rank, (proc, _) in enumerate(procs)
+                  if proc.returncode != 0}
+        if failed:
+            raise AssertionError(f"4m: children failed: {failed}")
+        children = []
+        for rank in range(MULTIHOST_PROCESSES):
+            with np.load(Path(tmp) / f"child{rank}.npz") as f:
+                children.append(({k: f[k] for k in (
+                    "spyral", "labels", "counts", "events")},
+                    json.loads(str(f["info"]))))
+    union = tuple(np.concatenate([c[0][k] for c in children]) for k in (
+        "spyral", "labels", "counts", "events"))
+    for name, got, ref in zip(("spyral", "labels", "counts", "events"),
+                              union, single):
+        if not np.array_equal(got, ref):
+            raise AssertionError(f"4m: the union of the {len(children)} "
+                                 f"processes' {name} differs from the single "
+                                 f"process's")
+    print(f"4m: the union of {len(children)} processes' rows equals the "
+          f"single process's bit for bit ({len(single[0])} rows, {n} events)")
+    summed = {k: 0 for k in KERNELS}
+    summed_routes = {"sort_rows": {"cluster": 0, "wide": 0}}
+    for _, info in children:
+        label = f"4m process {info['rank']}"
+        check_default_launches(label, info["launches"], info["routes"])
+        if info["build"]["built"] or info["build"]["library"] != library:
+            raise AssertionError(f"{label}: built {info['build']}, expected "
+                                 f"to load {library} as built by phase 2")
+        for k, v in info["launches"].items():
+            summed[k] += v
+        for r, v in info["routes"]["sort_rows"].items():
+            summed_routes["sort_rows"][r] += v
+        rate = info["events"] / (info["t1"] - info["t0"])
+        info["events_per_s"] = rate
+        times = sorted(info["phase_seconds"].items(), key=lambda kv: -kv[1])
+        print(f"{label} ({info['device']}): events [{info['start']}, "
+              f"{info['stop']}), {info['rows']} rows in "
+              f"{info['t1'] - info['t0']:.3f} s, {rate:.1f} events/s; tuned "
+              f"budgets {info['budgets']}; library {info['build']} reused; "
+              f"mem_get_info (free, total) at its start "
+              f"{info['mem_free_total_bytes']}, peak allocated "
+              f"{info['max_memory_allocated']} B; phase seconds "
+              + ", ".join(f"{k} {v:.4f}" for k, v in times) + f" [{card}]")
+    window = (max(c[1]["t1"] for c in children)
+              - min(c[1]["t0"] for c in children))
+    union_rate = n / window
+    print(f"4m: {len(children)} processes on one card, {n} events in "
+          f"{window:.3f} s from the first process's start to the last's end:"
+          f" {union_rate:.1f} events/s, against {single_rate:.1f} for one "
+          f"process on the same events [{card}]")
+    return {"launches": summed, "routes": summed_routes,
+            "single_events_per_s": single_rate, "single_wall_s": wall,
+            "union_events_per_s": union_rate, "union_window_s": window,
+            "processes": [c[1] for c in children]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1451,9 +1652,10 @@ def main() -> int:
 
     card = card_line()
     print(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    kernels.build()
     kernels.library()
-    print(f"kernels built in {kernels.build_seconds():.1f} s")
+    build = kernels.build_seconds()
+    print(f"kernels {'built' if build['built'] else 'loaded, already built'}"
+          f" in {build['seconds']:.1f} s: {build['library']}")
 
     sim, vertices, momenta = flagship_simulator("cuda")
     fused_cfg = dict(merge="fused", lookup="one_stage")
@@ -1628,8 +1830,10 @@ def main() -> int:
                    float(sim.config.det_params.mpgd_gain))
     check_against_cpu(sim, vertices, momenta)
     paths["kinematics"] = kinematics_path(card)
-    paths["kinematics_driver"] = kinematics_driver_path(
-        sim, paths["kinematics"].pop("events_a"), card)
+    events_a = paths["kinematics"].pop("events_a")
+    paths["kinematics_driver"] = kinematics_driver_path(sim, events_a, card)
+    paths["multihost"] = multihost_path(sim, events_a, card)
+    del events_a
 
     rows = []
     for name, (_, _, src, replaces, path) in KERNELS.items():
@@ -1688,6 +1892,8 @@ def main() -> int:
             "cases", "events_per_s")},
         "kinematics_driver": {k: paths["kinematics_driver"][k] for k in (
             "budgets", "wall_s", "events_per_s", "rows", "phase_seconds")},
+        "multihost": {k: v for k, v in paths["multihost"].items()
+                      if k not in ("launches", "routes")},
         "card": card}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -1697,4 +1903,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == [MULTIHOST_CHILD]:
+        sys.exit(multihost_child(*sys.argv[2:4]))
     sys.exit(main())

@@ -610,6 +610,30 @@ def test_run_reader_on_the_card(cuda_device):
     assert kept_gpu > 0 and abs(kept_gpu - kept_cpu) <= 0.02 * kept_cpu
 
 
+def test_host_copies_reuse_buffers_of_two_sizes(cuda_device):
+    """The driver's pinned copies with buffers of two sizes in the pool:
+    a copy that fits only the second takes it (once a crash in
+    ``list.remove``), and every copy reads back its rows."""
+    from attpc_engine_tpu_torch.detector.simulator import _HostCopies
+
+    copies = _HostCopies(cuda_device)
+    q = copies.ROWS_QUANTUM
+    # the fifth copy finds [q rows, 2q rows] free and takes the second
+    rows = [q + 10, 10, 10, q + 10, q + 10, 10]
+    srcs = [torch.full((n, 2), i, dtype=torch.int32, device=cuda_device)
+            for i, n in enumerate(rows)]
+    pending = None
+    for i, src in enumerate(srcs):
+        handle = copies.start(src)
+        if pending is not None:
+            j, h = pending
+            assert np.array_equal(copies.finish(h), srcs[j].cpu().numpy())
+        pending = (i, handle)
+    j, h = pending
+    assert np.array_equal(copies.finish(h), srcs[j].cpu().numpy())
+    assert len(copies.free) >= 2
+
+
 @pytest.mark.parametrize("chain", ["chain", "resample"])
 def test_kinematics_on_the_card_equals_cpu(cuda_device, chain):
     """The kinematics stage on the card against the CPU on the same seed:
@@ -649,3 +673,32 @@ def test_kinematics_on_the_card_equals_cpu(cuda_device, chain):
                                atol=1e-9)
     torch.testing.assert_close(gpu.vertices.cpu(), cpu.vertices, rtol=0,
                                atol=1e-12)
+
+
+def test_concurrent_first_users_run_one_build(cuda_device, tmp_path):
+    """Two processes that call ``kernels.library()`` at once on a fresh
+    build directory: one compiles, the other waits on the lock and loads
+    the same library without compiling."""
+    import json
+    import subprocess
+    import sys
+
+    code = (
+        "import json, sys\n"
+        "from pathlib import Path\n"
+        f"sys.path.insert(0, {str(Path(__file__).resolve().parents[1])!r})\n"
+        "from attpc_engine_tpu_torch import kernels\n"
+        "kernels.BUILD_DIR = Path(sys.argv[1])\n"
+        "kernels.library()\n"
+        "print(json.dumps(kernels.build_seconds()))\n"
+    )
+    build = tmp_path / "build"
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(build)],
+                              stdout=subprocess.PIPE, text=True)
+             for _ in range(2)]
+    outs = [p.communicate(timeout=900)[0] for p in procs]
+    assert [p.returncode for p in procs] == [0, 0]
+    builds = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    assert sorted(b["built"] for b in builds) == [False, True]
+    assert builds[0]["library"] == builds[1]["library"]
+    assert [p.name for p in build.glob("*.so")] == [builds[0]["library"]]

@@ -1,7 +1,8 @@
 """The port's entry points run on the card unless the caller asks for the
 CPU, and its engine knobs take only the values they name.
 
-``DetectorSimulator``, ``run_simulation``, ``fano_noise`` and the
+``DetectorSimulator``, ``run_simulation``, ``fano_noise``,
+``run_simulation_multihost`` (on ``cuda:{LOCAL_RANK}``) and the
 kinematics entry points (``KinematicsPipeline``, ``run_kinematics_pipeline``,
 ``run_kinematics``, ``Reaction.calculate``) default to ``device="cuda"``. Where torch finds no CUDA device they raise before any
 work; nothing falls back to the CPU. With ``device="cpu"`` they run the
@@ -77,6 +78,24 @@ def test_run_simulation_defaults_to_the_card_and_raises_without_one(
                            engine=EngineParams(**SMALL), seed=1,
                            device="cpu")
     assert stats["events"] == 2
+
+
+def test_run_simulation_multihost_defaults_to_the_card(no_card, kine_file,
+                                                      tmp_path, monkeypatch):
+    """The device defaults to cuda:{LOCAL_RANK} and raises without a card,
+    before any file is touched; device="cpu" runs the slice."""
+    from attpc_engine_tpu_torch.parallel import run_simulation_multihost
+
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    monkeypatch.delenv("RANK", raising=False)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    kw = dict(seed=1, engine=EngineParams(**SMALL))
+    with pytest.raises(RuntimeError, match="'cuda:1'.*device='cpu'"):
+        run_simulation_multihost(torch_config(), kine_file, tmp_path, **kw)
+    assert list(tmp_path.iterdir()) == []
+    assert run_simulation_multihost(torch_config(), kine_file, tmp_path,
+                                    device="cpu", **kw) == (0, 2)
+    assert (tmp_path / "run_0000.h5").exists()
 
 
 def test_fano_noise_defaults_to_the_card(no_card):

@@ -368,6 +368,23 @@ def test_spyral_writer_write_protocol(tmp_path):
     assert 0 < keep.sum() < 50
 
 
+def test_host_copies_take_a_free_buffer_by_position():
+    """The pinned-copy pool hands out the first free buffer that is large
+    enough and takes it out of the list by position: with buffers of two
+    sizes free, taking the second once raised in ``list.remove``, which
+    compares tensors elementwise (a driver run on the card of 16 batches
+    crashed so)."""
+    copies = tsimulator._HostCopies(torch.device("cpu"))
+    small, large, other = (torch.zeros(65536, 2), torch.zeros(131072, 2),
+                           torch.zeros(65536, 2))
+    copies.free = [small, large, other]
+    assert copies.take_free(70_000) is large
+    assert [id(b) for b in copies.free] == [id(small), id(other)]
+    assert copies.take_free(10) is small
+    assert copies.take_free(200_000) is None
+    assert len(copies.free) == 1 and copies.free[0] is other
+
+
 # ----------------------------------------------------------------------- #
 # the writers' compression and striping
 

@@ -224,9 +224,107 @@ def test_port_imports_without_jax():
         "k in ('jax', 'attpc_engine_tpu') "
         "or k.startswith(('jax.', 'attpc_engine_tpu.')))]\n"
         "assert not bad, bad\n"
-        "print(len(names))\n"
+        "print(' '.join(names))\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 20
+    names = res.stdout.split()
+    assert len(names) >= 38
+    assert {f"attpc_engine_tpu_torch.{m}" for m in (
+        "compat", "io.spyral_child", "parallel", "parallel.multihost",
+        "utils.profiling")} <= set(names)
+
+
+# ----------------------------------------------------------------------- #
+# the port uses no file of the JAX package
+
+
+def _copy_cuts(header: str) -> set[int]:
+    """The source lines a copy's header says it leaves out ("less its
+    lines 21-26, ... and 406-422 (...)"), 1-based."""
+    import re
+
+    listed = header.split("less its lines", 1)[1]
+    cut = set()
+    for a, b in re.findall(r"(\d+)-(\d+)", listed):
+        cut.update(range(int(a), int(b) + 1))
+    return cut
+
+
+def test_writer_child_is_the_jax_child_less_its_cuts():
+    """The port's writer child is the JAX package's, line for line, less
+    its one-line header and the source lines the header lists; every cut
+    line is one of the recycle path's, or of the docstring paragraph that
+    names a path outside the repository."""
+    src = (REPO / "attpc_engine_tpu" / "io" / "spyral_child.py").read_text()
+    copy = (REPO / "attpc_engine_tpu_torch" / "io" / "spyral_child.py"
+            ).read_text()
+    header, body = copy.split("\n", 1)
+    assert header.startswith(
+        "# Copy of attpc_engine_tpu/io/spyral_child.py less its lines")
+    cut = _copy_cuts(header)
+    lines = src.splitlines(keepends=True)
+    assert body == "".join(l for i, l in enumerate(lines, 1) if i not in cut)
+    cut_text = "".join(lines[i - 1] for i in sorted(cut))
+    assert "_mem = True" in cut_text and "_recycle" in cut_text
+    assert "recycle" not in body.replace("io/recycle.py", "")
+
+
+def test_pad_assets_are_a_copy():
+    from attpc_engine_tpu_torch.detector.parameters import PAD_ASSETS
+
+    src = REPO / "attpc_engine_tpu" / "detector" / "data" / "pad_assets.npz"
+    assert PAD_ASSETS == (REPO / "attpc_engine_tpu_torch" / "data"
+                          / "pad_assets.npz")
+    assert PAD_ASSETS.read_bytes() == src.read_bytes()
+
+
+def test_writer_proc_launches_the_ports_child(tmp_path):
+    """SpyralWriterProc's child is the port's script (the byte-identity
+    tests of tests/test_torch_driver.py run it against SpyralWriter)."""
+    from attpc_engine_tpu_torch.detector import SpyralWriterProc
+    from attpc_engine_tpu_torch.detector.writer import SPYRAL_CHILD
+
+    assert SPYRAL_CHILD == (REPO / "attpc_engine_tpu_torch" / "io"
+                            / "spyral_child.py")
+    w = SpyralWriterProc(tmp_path, torch_config())
+    try:
+        assert w._proc.args[1] == str(SPYRAL_CHILD)
+    finally:
+        w.close()
+
+
+def _jax_package_literals(source: str) -> list[str]:
+    """String literals of ``source``, docstrings excepted, that name
+    ``attpc_engine_tpu`` (a path under it, or a module of it)."""
+    import ast
+
+    tree = ast.parse(source)
+    docstrings = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)) and node.body:
+            first = node.body[0]
+            if isinstance(first, ast.Expr) and isinstance(first.value,
+                                                          ast.Constant):
+                docstrings.add(id(first.value))
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docstrings
+            and "attpc_engine_tpu" in node.value.replace(
+                "attpc_engine_tpu_torch", "")]
+
+
+def test_no_string_names_the_jax_package():
+    """No string literal of the port, docstrings excepted, names a path or
+    a module under attpc_engine_tpu; the scan finds the kind of literal
+    that once pointed the writer child and the pad assets there."""
+    assert _jax_package_literals(
+        '"""attpc_engine_tpu/io in a docstring."""\n'
+        'P = Path(x).parents[2] / "attpc_engine_tpu" / "io"\n'
+        'Q = "attpc_engine_tpu_torch/io"\n') == ["attpc_engine_tpu"]
+    found = {str(p.relative_to(REPO)): _jax_package_literals(p.read_text())
+             for p in sorted((REPO / "attpc_engine_tpu_torch").rglob("*.py"))}
+    assert len(found) >= 38
+    assert {k: v for k, v in found.items() if v} == {}
