@@ -5,18 +5,20 @@ A ``DetectorSimulator`` runs the detector step for a batch of events on one
 device: transport (K1), electron generation, deposition and merge (K2 and
 K3 by default; K6 and K5 with ``EngineParams(lookup="one_stage",
 merge="fused")``), and the Spyral conversion (K3), giving packed int32 rows
-per batch that the host turns into Spyral HDF5 files. ``run_simulation``
-streams the batches of a kinematics file through it into a writer, with
-the JAX driver's step-window and budget auto-tuning, one batch's copy to
-the host in flight behind the next batch's step and the writes on a
-background thread; ``simulate`` runs one event. All run on the card unless
-the caller passes ``device="cpu"``, which runs the kernels' plain PyTorch
-versions.
+per batch, which the Spyral assembly (``assemble_device``: TB wiggle, z
+order and the eight f64 columns in one kernel on the card) turns into the
+rows of the Spyral HDF5 files. ``run_simulation`` streams the batches of a
+kinematics file through it into a writer, with the JAX driver's
+step-window and budget auto-tuning, one batch's copy to the host in flight
+behind the next batch's step and the copy-out and writes on a background
+thread; ``simulate`` runs one event. All run on the card unless the caller
+passes ``device="cpu"``, which runs the kernels' plain PyTorch versions.
 
     integrate_tracks (transport.py)       [E*K] tracks, RK4 windows
  -> generate_electrons (deposition.py)    Fano-smeared counts
  -> deposit_and_merge (deposition.py)     diffusion mesh + (pad, tb) merge
  -> _convert_to_spyral (this file)        ADC threshold, z-order, pool
+ -> assemble_device (assemble_cuda.py)    wiggle, exact z order, columns
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import queue
 import sys
 import threading
 import time
+import weakref
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -46,6 +49,8 @@ from .deposition import (
     generate_electrons,
     raw_wiggle,
 )
+from . import assemble_cuda
+from .assemble import AssembleTables
 from .parameters import PAD_ID_SENTINEL, PAD_TABLE_NX, PAD_TABLE_NY, Config
 from .response import get_response
 from .sort_cuda import sort_rows
@@ -456,6 +461,30 @@ class DetectorSimulator:
                 lab[lo:hi] = lab[lo:hi][order]
         return self.assemble_spyral(q, tbs, pad, lab)
 
+    def assemble_device(self, packed: torch.Tensor, counts, event_ids,
+                        seed: int):
+        """The Spyral assembly on ``self.device``: packed rows [P, 2] int32
+        (P = sum(counts)) of events with ``counts`` [E] kept rows and
+        global ids ``event_ids`` [E] -> device tensors (spyral [P, 8] f64,
+        labels [P] int64), each event's rows in ascending z, the TB wiggle
+        keyed (``seed``, event id). The same values as
+        ``assemble_spyral_ordered``, bit for bit: on a CUDA device the
+        kernel (``assemble_cuda``; a build or launch failure raises), on
+        the CPU its plain version."""
+        dev = self.device
+        return assemble_cuda.assemble(
+            packed.to(dev),
+            torch.as_tensor(counts).to(device=dev, dtype=torch.int32),
+            torch.as_tensor(event_ids).to(device=dev, dtype=torch.int64),
+            seed, self._assemble_tables())
+
+    def _assemble_tables(self) -> AssembleTables:
+        t = getattr(self, "_asm_tables", None)
+        if t is None:
+            t = AssembleTables.from_numpy(self._native_tables(), self.device)
+            self._asm_tables = t
+        return t
+
     def _native_tables(self) -> dict:
         t = getattr(self, "_nat_tables", None)
         if t is None:
@@ -507,7 +536,9 @@ class DetectorSimulator:
         [cumsum(counts)[i-1], cumsum(counts)[i])), ``spyral_counts`` [E],
         ``meta_i32``, the merged cloud and the overflow counters; with
         ``assemble``, also host ``spyral`` [total, 8] f64 and
-        ``spyral_labels`` [total] i64 (TB wiggle from ``wiggle_seed``).
+        ``spyral_labels`` [total] i64, assembled on ``self.device``
+        (``assemble_device``; event i's TB wiggle keyed (``wiggle_seed``,
+        i)).
         With ``compact``, the merged cloud (with its wiggled ``tbs``) is
         pooled by ``compact_cloud`` at ``cloud_cap`` rows an event (its
         counts replace the merged ones) and ``cloud_overflow`` counts the
@@ -537,14 +568,12 @@ class DetectorSimulator:
             out["cloud_overflow"] = cc.pop("overflow")
             out.update(cc)
         if assemble:
-            counts = out["spyral_counts"].cpu().numpy()
-            total = int(counts.sum())
-            spyral, labels = self.assemble_spyral_ordered(
-                out["packed"][:total].cpu().numpy(), counts, np.arange(e),
-                wiggle_seed,
-            )
-            out["spyral"] = spyral
-            out["spyral_labels"] = labels
+            total = int(out["spyral_counts"].sum())
+            spyral, labels = self.assemble_device(
+                out["packed"][:total], out["spyral_counts"],
+                torch.arange(e), wiggle_seed)
+            out["spyral"] = spyral.cpu().numpy()
+            out["spyral_labels"] = labels.cpu().numpy()
         return out
 
 
@@ -653,15 +682,20 @@ def simulate(
 
 
 class _HostCopies:
-    """Copies of packed rows to the host, started behind a batch's step and
-    finished after the next batch's dispatch (simulator.py:1353-1363).
+    """Copies of a batch's rows to the host (the assembled Spyral rows and
+    labels, or the packed rows), started behind the batch's step and
+    finished on the writer thread (simulator.py:1353-1363).
 
     On a CUDA device a copy runs on a side stream, after an event recorded
-    on the compute stream, into a page-locked buffer; the source is kept
-    alive for the side stream (``record_stream``). ``finish`` waits for the
-    copy, copies the rows out into an array the caller owns and only then
-    frees the buffer for another batch. On the CPU the rows are the
-    tensor's own memory.
+    on the compute stream, into a page-locked buffer of the source's type
+    and row shape; the source is kept alive for the side stream
+    (``record_stream``). ``finish`` waits for the copy, copies the rows out
+    into an array the caller owns and only then frees the buffer for
+    another batch; ``lend`` hands the buffer's rows to a callback without
+    a copy and frees the buffer after it, unless the callback kept them.
+    ``start`` runs on the main thread and ``finish`` and ``lend`` on the
+    writer thread: the free list is taken and refilled under a lock. On
+    the CPU the rows are the tensor's own memory.
     """
 
     ROWS_QUANTUM = 1 << 16
@@ -670,24 +704,30 @@ class _HostCopies:
         self.cuda = device.type == "cuda"
         self.stream = torch.cuda.Stream(device) if self.cuda else None
         self.free: list[torch.Tensor] = []
+        self.lock = threading.Lock()
 
-    def take_free(self, rows: int) -> torch.Tensor | None:
-        """The first free buffer of at least ``rows`` rows, taken out of
-        the free list by its position (``list.remove`` would compare
-        buffers with the elementwise tensor ``==``), or None."""
-        for i, buf in enumerate(self.free):
-            if buf.shape[0] >= rows:
-                return self.free.pop(i)
+    def take_free(self, rows: int,
+                  like: torch.Tensor | None = None) -> torch.Tensor | None:
+        """The first free buffer of at least ``rows`` rows (and of
+        ``like``'s type and row shape, where given), taken out of the free
+        list by its position (``list.remove`` would compare buffers with
+        the elementwise tensor ``==``), or None."""
+        with self.lock:
+            for i, buf in enumerate(self.free):
+                if buf.shape[0] >= rows and (
+                        like is None or (buf.dtype == like.dtype
+                                         and buf.shape[1:] == like.shape[1:])):
+                    return self.free.pop(i)
         return None
 
     def start(self, src: torch.Tensor):
         if not self.cuda:
             return src
         rows = src.shape[0]
-        buf = self.take_free(rows)
+        buf = self.take_free(rows, like=src)
         if buf is None:
             q = self.ROWS_QUANTUM
-            buf = torch.empty((max(-(-rows // q), 1) * q, 2),
+            buf = torch.empty((max(-(-rows // q), 1) * q, *src.shape[1:]),
                               dtype=src.dtype, pin_memory=True)
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(src.device))
@@ -705,8 +745,30 @@ class _HostCopies:
         buf, rows, done = handle
         done.synchronize()
         rows_np = buf[:rows].numpy().copy()
-        self.free.append(buf)
+        with self.lock:
+            self.free.append(buf)
         return rows_np
+
+    def lend(self, handles, use) -> None:
+        """Call ``use(*arrays)`` with host views of the copies' page-locked
+        buffers, once each copy is done: no copy out. Then each buffer goes
+        back to the pool, unless its array outlived the call (``use`` kept
+        it, or a view of it): such a buffer stays with its array and
+        leaves the pool, so that no later copy overwrites what a caller
+        kept. On the CPU the arrays are the tensors' own memory."""
+        if not self.cuda:
+            use(*(h.numpy() for h in handles))
+            return
+        arrays = []
+        for buf, rows, done in handles:
+            done.synchronize()
+            arrays.append(buf[:rows].numpy())
+        alive = [weakref.ref(a) for a in arrays]
+        use(*arrays)
+        del arrays
+        with self.lock:
+            self.free.extend(buf for (buf, _, _), ref in zip(handles, alive)
+                             if ref() is None)
 
 
 def _round_up(k, q: int) -> int:
@@ -767,6 +829,10 @@ def run_reader(
         # a writer without write_spyral_pool takes the reference protocol:
         # each event's raw [pad, tb, electrons] cloud through write()
         raw_writer = not hasattr(writer, "write_spyral_pool")
+        # a writer with write_packed (SpyralWriterProc) takes packed rows
+        # and assembles them in its child; any other writer of
+        # write_spyral_pool takes rows assembled on the device
+        packed_writer = hasattr(writer, "write_packed")
         copies = _HostCopies(device)
         stats = {"events": 0, "rows": 0}
         budgets.update(
@@ -779,12 +845,13 @@ def run_reader(
         )
         tuned = not auto_tune
 
-        def pull_batch(out, n: int, cur_steps: int):
+        def pull_batch(out, n: int, cur_steps: int, start: int):
             """The batch's metadata (a sync, before the next dispatch), its
-            overflows raised as PoolOverflow, then the start of its packed
-            rows' copy, or the pull of its compacted raw cloud. Returns
-            (counts, packed handle, merged counts, raw cloud, statistics
-            for the tuning)."""
+            overflows raised as PoolOverflow, then its Spyral assembly on
+            the device and the start of the assembled rows' copy (the
+            packed rows' copy for a writer of packed rows), or the pull of
+            its compacted raw cloud. Returns (counts, copy handles, merged
+            counts, raw cloud, statistics for the tuning)."""
             with phase_timer(times, "pull-meta"):
                 meta = out["meta_i32"].cpu().numpy()
             cloud_overflow = (int(out["cloud_overflow"])
@@ -801,8 +868,17 @@ def run_reader(
                           int(counts.sum()), int(meta[-2]))
             if not raw_writer:
                 total = int(counts.sum())
+                packed = out["packed"][:total]
+                if packed_writer:
+                    with phase_timer(times, "pull-start"):
+                        handle = copies.start(packed)
+                    return counts, handle, merged_counts, None, tune_stats
+                with phase_timer(times, "assemble-device"):
+                    spyral, labels = sim.assemble_device(
+                        packed, out["spyral_counts"],
+                        torch.arange(start, start + n, device=device), seed)
                 with phase_timer(times, "pull-start"):
-                    handle = copies.start(out["packed"][:total])
+                    handle = (copies.start(spyral), copies.start(labels))
                 return counts, handle, merged_counts, None, tune_stats
             with phase_timer(times, "pull-cloud"):
                 cl_counts = out["counts"][:n].cpu().numpy()
@@ -815,23 +891,29 @@ def run_reader(
             return counts, None, None, (raw, labels_all, cl_counts), tune_stats
 
         def write_out(pending) -> None:
-            """Assemble and write one batch, on the writer thread."""
-            counts, packed, raw_counts, cloud_np, start, n = pending
+            """Finish one batch's copy to the host and write it, on the
+            writer thread."""
+            counts, handle, raw_counts, cloud_np, start, n = pending
             events = np.arange(start, start + n)
             if cloud_np is None:
-                if hasattr(writer, "write_packed"):
+                if packed_writer:
+                    with phase_timer(times, "pull-packed"):
+                        packed = copies.finish(handle)
                     with phase_timer(times, "ship-to-writer"):
                         writer.write_packed(packed, counts, events,
                                             raw_counts=raw_counts,
                                             wiggle_seed=seed)
                 else:
-                    with phase_timer(times, "assemble"):
-                        spyral, labels = sim.assemble_spyral_ordered(
-                            packed, counts, events, seed)
-                    with phase_timer(times, "h5py-write"):
-                        writer.write_spyral_pool(spyral, labels, counts,
-                                                 event_numbers=events,
-                                                 raw_counts=raw_counts)
+                    t0 = time.perf_counter()
+
+                    def write(spyral, labels):
+                        times.add("pull-spyral", time.perf_counter() - t0)
+                        with phase_timer(times, "h5py-write"):
+                            writer.write_spyral_pool(spyral, labels, counts,
+                                                     event_numbers=events,
+                                                     raw_counts=raw_counts)
+
+                    copies.lend(handle, write)
             else:
                 raw, labels_all, cl_counts = cloud_np
                 offsets = np.concatenate([[0], np.cumsum(cl_counts)])
@@ -859,15 +941,9 @@ def run_reader(
                 raise werr[0]
             wq.put(pending)
 
-        def materialize_and_write(p) -> None:
-            counts_p, handle, raw_p, start_p, n_p = p
-            with phase_timer(times, "pull-packed"):
-                packed = copies.finish(handle)
-            enqueue_write((counts_p, packed, raw_p, None, start_p, n_p))
-
         wthread = threading.Thread(target=writer_loop, name="spyral-writer")
         wthread.start()
-        # the previous batch, whose packed rows are on their way to the host
+        # the previous batch, whose rows are on their way to the host
         pending_dev = None
         for start in range(start_event, stop, eb):
             with phase_timer(times, "read"):
@@ -884,11 +960,11 @@ def run_reader(
                         compact=raw_writer, cloud_cap=budgets["cloud"],
                     )
                 if pending_dev is not None:
-                    materialize_and_write(pending_dev)
+                    enqueue_write(pending_dev)
                     pending_dev = None
                 try:
                     counts, handle, merged, cloud_np, tune_stats = pull_batch(
-                        out, n, budgets["steps"])
+                        out, n, budgets["steps"], start)
                     break
                 except PoolOverflow as ov:
                     for kind in ov.kinds:
@@ -906,7 +982,7 @@ def run_reader(
             if cloud_np is not None:
                 enqueue_write((counts, None, None, cloud_np, start, n))
             else:
-                pending_dev = (counts, handle, merged, start, n)
+                pending_dev = (counts, handle, merged, None, start, n)
             stats["events"] += n
             stats["rows"] += int(counts.sum())
             if not tuned:
@@ -922,7 +998,7 @@ def run_reader(
                                        engine.n_time_steps)
                 tuned = True
         if pending_dev is not None:
-            materialize_and_write(pending_dev)
+            enqueue_write(pending_dev)
             pending_dev = None
         wq.put(None)
         wthread.join()
@@ -1005,14 +1081,18 @@ def run_simulation(
     and a run resumed with the same seed at ``start_event`` reproduces the
     events it would have produced, for any ``events_per_batch``.
 
-    One batch's packed rows are copied to the host behind the next batch's
-    step, and the rows are assembled and written on one background thread
-    (a bounded queue, batches in order; its first exception is raised
-    here). The writer takes packed rows (``write_packed``,
-    SpyralWriterProc), assembled rows (``write_spyral_pool``,
-    SpyralWriter) or, lacking both, each event's raw [pad, tb, electrons]
-    cloud (``write``, the reference ``SimulationWriter`` protocol; the
-    "cloud" overflow doubles ``cloud_cap``). The writer is closed on every
+    Each batch's rows are assembled on ``device`` once its metadata shows
+    no overflow (``DetectorSimulator.assemble_device``: on the card one
+    kernel launch a batch) and copied to the host behind the next batch's
+    step; one background thread finishes the copies and writes (a bounded
+    queue, batches in order; its first exception is raised here). The
+    writer takes packed rows (``write_packed``, SpyralWriterProc, whose
+    child assembles them on the host), assembled rows
+    (``write_spyral_pool``, SpyralWriter; on the card it gets views of
+    page-locked buffers, which the driver reuses after the call unless the
+    writer kept the arrays) or, lacking both, each event's raw [pad, tb,
+    electrons] cloud (``write``, the reference ``SimulationWriter``
+    protocol; the "cloud" overflow doubles ``cloud_cap``). The writer is closed on every
     exit; one with ``get_directory_name`` gets a run manifest there.
     ``show_progress`` shows a tqdm bar where tqdm is installed;
     ``ATTPC_TPU_TIMING`` prints the budgets and phase times to stderr.

@@ -72,7 +72,25 @@ Phases (each raises on failure, and nothing is caught):
    driven here. K1, the deposit-rows kernel and K3 must have been launched
    by this phase, K2 not, K3 on its cluster route only; the rows must be
    well formed; eight events run on the card must agree with the same
-   eight run on the CPU through the plain versions.
+   eight run on the CPU through the plain versions. Every batch's rows are
+   assembled on the card (``DetectorSimulator.assemble_device``: the
+   assembly kernel ``csrc/assemble.cu`` once a batch, events keyed by
+   their global ids as the driver keys them), and after the counted run
+   must equal the C++ library's host assembly (``native_assemble_batch``,
+   the JAX package's writer stage) of the same packed rows bit for bit;
+   printed: the assembly (launch to sync), the copy of its rows to
+   pageable host memory and the host assembly, in ms a batch. The same
+   holds for every phase that runs ``simulate_batch`` batches (4b, 4g,
+   4e, 4f and the tuned step). Then the assembly kernel is held in the
+   manner of phase 3: against its plain version on the card and the C++
+   library, bit for bit, on phase 4's packed rows of the four batches, on
+   every edge case of ``tests/assemble_cases.py`` (empty and one-row
+   events, equal-tb runs longer than 32, integer tbs not descending, q = 0
+   and q at both ends of the response table, tb 0 and 511; seed 0 from
+   event 0, and a seed past 2^63 from an event past 2^32) and, against the
+   plain version, on a forged wiggle that rounds tb + w up to the next
+   integer; timed on the first batch beside its plain version and its
+   bound (bytes: 8 B read and 72 B written a row).
 4b. The fused configuration, ``EngineParams(merge="fused",
    lookup="one_stage")``, over the same four batches at full width: K1, K5
    on its cluster route (once a batch), K3 (once a batch, the convert sort,
@@ -115,10 +133,20 @@ Phases (each raises on failure, and nothing is caught):
    rows must equal, bit for bit, the host assembly of phase 4's packed
    rows of the same events (same seed and wiggle seed) at the full
    10,000-step window and the default budgets, which catches a race in
-   the pinned copy. Run B: two batches from ``point_budget=256``, whose
-   first batch must run again exactly once, on "point", and whose rows
-   must equal run A's. Printed: the driver's phase times and end-to-end
-   events/s, and the default step alone at run A's tuned window and
+   the pinned copy. The rows are assembled on the card: the assembly
+   kernel must launch once a batch, the host assembly
+   (``assemble_spyral_ordered``, ``native_assemble_batch``) must be called
+   zero times in the run, and each batch's rows must equal the C++
+   library's assembly of the same packed rows, run afterwards (as in 4i
+   and 4m). Run B: two batches from ``point_budget=256``, whose first
+   batch must run again exactly once, on "point" (the assembly launched
+   only for the batch that passed), and whose rows must equal run A's.
+   Run C: the same events into a writer that keeps nothing (the driver's
+   own pace; the MemoryWriter of runs A and B copies the rows it keeps).
+   Printed: the driver's phase times (and a batch's: ``assemble-device``
+   and the pulls on the main thread, ``pull-spyral`` and ``h5py-write``,
+   the writer's own time, on the writer thread) and end-to-end events/s,
+   and the default step alone at run A's tuned window and
    budgets (four batches, its first equal to phase 4's bit for bit)
    beside phase 4's; K3 on the flagship's merge rows at the tuned width.
 4k. The kinematics stage on the card at full width (no kernel of the port:
@@ -142,13 +170,17 @@ Phases (each raises on failure, and nothing is caught):
    ``auto_tune=True``, a writer of assembled rows): the first dispatch the
    probe, the tuned budgets no wider than the defaults, K1, the
    deposit-rows kernel and K3 (cluster route only) launched, K2 not; every
-   assembled row well formed; eight events of the first batch agree with
-   the same eight run on the CPU through the plain versions. Printed: its
-   end-to-end events/s.
+   assembled row well formed and equal to the C++ library's assembly of
+   the same packed rows, one assembly launch a batch and no host assembly;
+   eight events of the first batch agree with the same eight run on the
+   CPU through the plain versions. Printed: its end-to-end events/s and
+   phase times a batch.
 4m. One process per slice on the card: the first 6,144 events of 4k's
    (A), first through ``run_reader`` in this process (as 4h, auto-tuned,
-   384 events a batch; the single run), then split over three processes
-   started together on ``cuda:0`` (this script in its child mode, with
+   384 events a batch; the single run, and once more into a writer that
+   keeps nothing, for the driver's own pace), then split over three
+   processes started together on ``cuda:0`` (this script in its child
+   mode, with
    ``RANK`` 0-2, ``WORLD_SIZE`` 3, ``LOCAL_RANK`` 0): each resolves its
    ids and card as ``run_simulation_multihost`` does
    (``parallel.resolve_process``), takes its slice from
@@ -158,8 +190,11 @@ Phases (each raises on failure, and nothing is caught):
    of the three processes' rows must equal the single run's bit for bit
    (Spyral rows, labels, counts and event numbers, in event order); every
    process must have launched K1, the deposit-rows kernel and K3 (cluster
-   route only) and not K2, must have loaded the library phase 2 built
-   without compiling (``kernels.build_seconds()``), and must exit with 0.
+   route only) and not K2, the assembly kernel once a batch and the host
+   assembly never (the single run's rows also equal the C++ library's
+   assembly of its packed rows), must have loaded the library phase 2
+   built without compiling (``kernels.build_seconds()``), and must exit
+   with 0.
    Printed: each process's events/s, phase seconds and device memory, and
    the three processes' events/s over the window from the first one's
    start to the last one's end beside the single run's. The HDF5 side of
@@ -195,6 +230,11 @@ BATCH = 384
 SEED = 1
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 F32_FLOPS = 67e12  # f32 outside the tensor cores, the same source
+F64_FLOPS = 34e12  # f64 outside the tensor cores, the same source
+# f64 operations of one row of the Spyral assembly (csrc/assemble.cu): the
+# wiggle's scale and add, the threshold's division, the integral's two
+# products and sum, the amplitude's product, z's four operations
+ASSEMBLE_F64_OPS_PER_ROW = 11
 # f32 operations of one RK4 step of one live track in csrc/transport.cu,
 # counting each logf, sqrtf and division as one: four right-hand sides of
 # ~48 and ~78 for the stage inputs, the update, the kinetic energy and the
@@ -241,7 +281,16 @@ KERNELS = {
                    "attpc_engine_tpu_torch/csrc/deposit.cu",
                    "attpc_engine_tpu/detector/deposit_pallas.py:111",
                    "pad_lookup"),
+    # the Spyral assembly: no TPU kernel, the JAX package's host stage
+    # (simulator.py:675, native/spyral_io.cpp:110); launched by the driver
+    "assemble": ("assemble_cuda", "launches",
+                 "attpc_engine_tpu_torch/csrc/assemble.cu",
+                 "attpc_engine_tpu/detector/simulator.py:675", "driver"),
 }
+# kernels that replace a host stage of the JAX package, not a TPU kernel
+HOST_STAGES = {"assemble": "no TPU kernel: the JAX package's host assembly "
+                           "(attpc_engine_tpu/detector/simulator.py:675, "
+                           "native/spyral_io.cpp:110)"}
 
 
 # per-route launch counters beside a kernel's total
@@ -271,13 +320,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def bound(n_bytes: float, f32_ops: float = 0.0) -> dict:
+def bound(n_bytes: float, f32_ops: float = 0.0, f64_ops: float = 0.0) -> dict:
     """The least time the card could take: the bytes the function must
-    move over the memory rate, or its f32 operations over the f32 rate,
-    whichever is larger. Integer compares, gathers and index arithmetic
-    have no rate in the card's table and are not counted."""
+    move over the memory rate, or its f32 and f64 operations over their
+    rates, whichever is larger. Integer compares, gathers and index
+    arithmetic have no rate in the card's table and are not counted."""
     t_bytes = 1e3 * n_bytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * f32_ops / F32_FLOPS
+    t_ops = 1e3 * (f32_ops / F32_FLOPS + f64_ops / F64_FLOPS)
     return {"bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
@@ -917,6 +966,101 @@ def check_merge(args, label: str, expect: tuple, card: str) -> dict:
             "width": w, "cap": c, "allocated_bytes": extra}
 
 
+def assemble_cases():
+    """tests/assemble_cases.py, loaded by its path (a package named
+    ``tests`` elsewhere on the path cannot shadow it)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "assemble_cases", REPO / "tests" / "assemble_cases.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def assemble_bytes(p: int, e: int, n_pads: int, n_resp: int) -> int:
+    """Bytes the assembly must move: the packed rows, counts and event ids
+    and the tables read once; the f64 rows and int64 labels written
+    once."""
+    return p * 8 + e * 12 + n_pads * 24 + (2 * n_resp + 1) * 8 + p * 72
+
+
+def check_assemble(sim, batches: list, card: str) -> dict:
+    """The Spyral assembly kernel (``csrc/assemble.cu``) against its plain
+    version on the card and the C++ library (``native_assemble_batch``) on
+    the host, bit for bit: on phase 4's packed rows of every flagship
+    batch (events from 0, 384, ... as the driver keys them), on every edge
+    case of tests/assemble_cases.py (seed 0 with events from 0, and a seed
+    past 2^63 with events past 2^32), and on a forged wiggle that rounds
+    tb + w up to the next integer (against the plain version; the library
+    draws its own wiggle). One launch a call. Timed on phase 4's first
+    batch beside its plain version and its bound."""
+    from attpc_engine_tpu_torch.detector import assemble_cuda
+    from attpc_engine_tpu_torch.detector.assemble import assemble_plain
+    from attpc_engine_tpu_torch.native import native_assemble_batch
+
+    cases_mod = assemble_cases()
+    tables = sim._assemble_tables()
+    native_tables = sim._native_tables()
+
+    def args_of(packed, counts, first):
+        return (torch.from_numpy(packed).cuda(),
+                torch.from_numpy(np.asarray(counts)).to("cuda", torch.int32),
+                torch.arange(first, first + len(counts), device="cuda"))
+
+    cases = [(packed, counts, i * BATCH, SEED, f"flagship batch {i}")
+             for i, (packed, counts) in enumerate(batches)]
+    edge = cases_mod.pool(cases_mod.edge_events(native_tables,
+                                                np.random.default_rng(4)))
+    cases += [(*edge, 0, 0, "edge cases"),
+              (*edge, 2**32 + 9, 2**63 + 12345,
+               "edge cases, seed past 2^63, events past 2^32")]
+    for packed, counts, first, seed, label in cases:
+        args = args_of(packed, counts, first)
+        before = assemble_cuda.launches
+        got = assemble_cuda.assemble_cuda(*args, seed, tables)
+        torch.cuda.synchronize()
+        if assemble_cuda.launches != before + 1:
+            raise AssertionError(f"assembly, {label}: "
+                                 f"{assemble_cuda.launches - before} launches")
+        got = tuple(x.cpu().numpy() for x in got)
+        plain = tuple(x.cpu().numpy()
+                      for x in assemble_plain(*args, seed, tables))
+        ref = native_assemble_batch(packed, counts, first, seed,
+                                    native_tables)
+        if ref is None:
+            raise AssertionError("the C++ assembly library did not build")
+        same_bits(f"assembly, {label}: kernel vs plain", got, plain)
+        same_bits(f"assembly, {label}: kernel vs the C++ library", got, ref)
+    packed, counts, wiggle, n = cases_mod.forged_tie()
+    args = args_of(packed, counts, 0)
+    w = torch.from_numpy(wiggle).cuda()
+    got = assemble_cuda.assemble_cuda(*args, SEED, tables, wiggle=w)
+    plain = assemble_plain(*args, SEED, tables, wiggle=w)
+    same_bits("assembly, forged tie: kernel vs plain",
+              tuple(x.cpu().numpy() for x in got),
+              tuple(x.cpu().numpy() for x in plain))
+    if (got[0][:4, 5].long().cpu().numpy() - 100).tolist() != [0, 2, 1, 3]:
+        raise AssertionError("assembly, forged tie: not the stable order")
+
+    packed, counts = batches[0]
+    args = args_of(packed, counts, 0)
+    p, e = len(packed), len(counts)
+    ms = cuda_ms(lambda: assemble_cuda.assemble_cuda(*args, SEED, tables), 20)
+    plain_ms = cuda_ms(lambda: assemble_plain(*args, SEED, tables), 3)
+    n_bytes = assemble_bytes(p, e, tables.pad_cx.shape[0],
+                             tables.resp_asc.shape[0])
+    bnd = bound(n_bytes, f64_ops=ASSEMBLE_F64_OPS_PER_ROW * p)
+    print(f"assembly kernel: bit-exact against its plain version and the C++ "
+          f"library on {len(batches)} flagship batches, "
+          f"{len(edge[1])} edge-case events (twice) and the forged tie; on "
+          f"the first batch ({p} rows, {e} events) kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, bound {bnd['bound_ms']:.4f} ms "
+          f"({bnd['bound_by']}, {n_bytes} B) [{card}]")
+    return {"max_abs_err": 0, "ms": ms, "plain_ms": plain_ms, **bnd,
+            "library_ms": None, "rows": p, "events": e, "bytes": n_bytes}
+
+
 def check_rows(sim, out, n_events: int) -> int:
     """Well-formed packed rows; returns their count."""
     from attpc_engine_tpu_torch.detector.simulator import split_packed
@@ -947,21 +1091,50 @@ RETRY_POINT_BUDGET = 4096  # run_simulation's second doubling of 1,024
 FUSED_WIDE_POINT_BUDGET = 2500
 
 
+def host_assembly(sim, packed, counts, first_event: int):
+    """The C++ library's assembly (``native_assemble_batch``) of packed
+    rows: the host stage the JAX package's writer runs, and the reference
+    the assembly kernel is held to. Raises if the library is missing."""
+    from attpc_engine_tpu_torch.native import native_assemble_batch
+
+    res = native_assemble_batch(packed, counts, first_event, SEED,
+                                sim._native_tables())
+    if res is None:
+        raise AssertionError("the C++ assembly library did not build")
+    return res
+
+
+def same_bits(label: str, got, ref) -> None:
+    """Tuples of arrays (spyral f64, labels int64, ...), bit for bit."""
+    for i, (a, b) in enumerate(zip(got, ref)):
+        a, b = np.ascontiguousarray(a), np.ascontiguousarray(b)
+        if a.shape != b.shape or not np.array_equal(
+                a.view(np.int64) if a.dtype == np.float64 else a,
+                b.view(np.int64) if b.dtype == np.float64 else b):
+            raise AssertionError(f"{label}: output {i} differs")
+
+
 def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
               card: str, wide_per_batch: int = 0,
               per_batch: dict | None = None, keep_rows: bool = False) -> dict:
-    """The batches of ``vertices`` through simulate_batch + host assembly,
-    launch counts set to 0 just before and read just after; the device
-    step of every batch but the first is timed (dispatch until the
-    metadata reached the host). K3 must take its wide route
-    ``wide_per_batch`` times a batch (0 at the flagship's widths) and its
-    cluster route at least once; each kernel named in ``per_batch`` must
-    have been launched exactly that many times a batch. Returns the counts,
+    """The batches of ``vertices`` through simulate_batch and the Spyral
+    assembly on the card (``assemble_device``, keyed by global event id as
+    the driver keys it), launch counts set to 0 just before and read just
+    after; the device step of every batch but the first is timed (dispatch
+    until the metadata reached the host), and so are the assembly (launch
+    to sync) and the pageable copy of its rows to the host. K3 must take
+    its wide route ``wide_per_batch`` times a batch (0 at the flagship's
+    widths) and its cluster route at least once; the assembly kernel and
+    each kernel named in ``per_batch`` must have been launched exactly
+    that many times a batch (the assembly once). After the counted run,
+    every batch's rows must equal the C++ library's assembly of its packed
+    rows bit for bit (that host assembly timed too). Returns the counts,
     the timing and the first batch's merged cloud, meta_i32 and packed
     rows; with ``keep_rows``, also every batch's (packed rows, counts)."""
     from attpc_engine_tpu_torch.detector.simulator import overflow_kinds
 
-    step_s, asm_s, rows, first, kept = [], [], 0, None, []
+    step_s, asm_s, copy_s, rows, first, kept = [], [], [], 0, None, []
+    done = []
     reset_counts()
     for start in range(0, len(vertices), BATCH):
         v, m = vertices[start:start + BATCH], momenta[start:start + BATCH]
@@ -977,19 +1150,27 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
                                  f"{kinds}")
         counts = meta[:len(v)]
         total = check_rows(sim, out, len(v))
-        spyral, labels = sim.assemble_spyral_ordered(
-            out["packed"][:total].cpu().numpy(), counts,
-            np.arange(start, start + len(v)), SEED)
+        torch.cuda.synchronize()
+        ta = time.perf_counter()
+        spyral, labels = sim.assemble_device(
+            out["packed"][:total], out["spyral_counts"],
+            torch.arange(start, start + len(v), device="cuda"), SEED)
+        torch.cuda.synchronize()
         t2 = time.perf_counter()
+        spyral, labels = spyral.cpu().numpy(), labels.cpu().numpy()
+        t3 = time.perf_counter()
         if spyral.shape != (total, 8) or not np.isfinite(spyral).all():
             raise AssertionError("malformed Spyral rows")
+        packed = out["packed"][:total].cpu()
         if first is None:
             first = {k: out[k] for k in CLOUD_INTEGERS + ("charges",)}
-            first.update(meta_i32=meta, packed=out["packed"][:total].cpu())
+            first.update(meta_i32=meta, packed=packed)
         if keep_rows:
-            kept.append((out["packed"][:total].cpu().numpy(), counts))
+            kept.append((packed.numpy(), counts))
+        done.append((packed.numpy(), counts, start, spyral, labels))
         step_s.append(t1 - t0)
-        asm_s.append(t2 - t1)
+        asm_s.append(t2 - ta)
+        copy_s.append(t3 - t2)
         rows += total
     launches = read_counts()
     routes = read_routes()
@@ -1003,22 +1184,38 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
     if k3["cluster"] == 0 or k3["wide"] != wide_per_batch * len(step_s):
         raise AssertionError(f"{label}: K3 by route {k3}, expected the "
                              f"wide route {wide_per_batch} times a batch")
-    off = {k: launches[k] for k, n in (per_batch or {}).items()
+    per_batch = {"assemble": 1, **(per_batch or {})}
+    off = {k: launches[k] for k, n in per_batch.items()
            if launches[k] != n * len(step_s)}
     if off:
         raise AssertionError(f"{label}: launches {off} over {len(step_s)} "
                              f"batches, expected {per_batch} a batch")
+    host_s = []
+    for packed, counts, start, spyral, labels in done:
+        t0 = time.perf_counter()
+        ref = host_assembly(sim, packed, counts, start)
+        host_s.append(time.perf_counter() - t0)
+        same_bits(f"{label}: the card's assembly of events from {start} vs "
+                  f"the C++ library's", (spyral, labels), ref)
+    del done
     timed = step_s[1:]  # the first batch is warm-up
     ms = 1e3 * float(np.mean(timed))
+    asm_ms = 1e3 * float(np.mean(asm_s[1:]))
+    copy_ms = 1e3 * float(np.mean(copy_s[1:]))
+    host_ms = 1e3 * float(np.mean(host_s[1:]))
     print(f"{label} path: {len(step_s)} batches of {BATCH} events, {rows} rows;"
           f" device step {[round(1e3 * s, 3) for s in step_s]} ms "
           f"(first excluded: mean {ms:.3f} ms/batch, "
-          f"{BATCH / np.mean(timed):.1f} events/s); host assembly "
-          f"{1e3 * float(np.mean(asm_s[1:])):.3f} ms/batch; launches {launches}"
-          f", K3 by route {k3} [{card}]")
+          f"{BATCH / np.mean(timed):.1f} events/s); assembly on the card "
+          f"{asm_ms:.3f} ms/batch (launch to sync), its rows to pageable "
+          f"host memory {copy_ms:.3f} ms/batch, bit-identical to the C++ "
+          f"library's host assembly ({host_ms:.3f} ms/batch); launches "
+          f"{launches}, K3 by route {k3} [{card}]")
     return {"launches": launches, "routes": routes, "ms_per_batch": ms,
             "events_per_s": BATCH / float(np.mean(timed)), "first": first,
-            "batches": kept}
+            "batches": kept, "assemble_ms_per_batch": asm_ms,
+            "assembled_copy_ms_per_batch": copy_ms,
+            "host_assembly_ms_per_batch": host_ms}
 
 
 def compare_first(label: str, against: str, ref_first: dict,
@@ -1121,8 +1318,11 @@ class NpzReader(ArrayReader):
 
 
 class MemoryWriter:
-    """A ``write_spyral_pool`` writer that keeps each batch's assembled
-    rows: (spyral, labels, counts, event numbers)."""
+    """A ``write_spyral_pool`` writer that keeps a copy of each batch's
+    assembled rows: (spyral, labels, counts, event numbers). The driver
+    lends a writer its page-locked buffers; a writer that kept them
+    without a copy would take them out of the driver's pool, and each
+    later batch would pin new host memory on the main thread."""
 
     def __init__(self):
         self.batches = []
@@ -1130,18 +1330,82 @@ class MemoryWriter:
 
     def write_spyral_pool(self, spyral, labels, counts, event_numbers,
                           raw_counts=None):
-        self.batches.append((spyral, labels, np.asarray(counts),
-                             np.asarray(event_numbers)))
+        self.batches.append((spyral.copy(), labels.copy(),
+                             np.array(counts), np.array(event_numbers)))
 
     def close(self) -> None:
         self.closed = True
 
 
-def drive(config, engine, stop_event=None, reader=None):
+class CountingWriter:
+    """A ``write_spyral_pool`` writer that keeps nothing but the row and
+    event counts: the driver's own pace, with no cost of a writer."""
+
+    def __init__(self):
+        self.rows, self.events, self.closed = 0, 0, False
+
+    def write_spyral_pool(self, spyral, labels, counts, event_numbers,
+                          raw_counts=None):
+        if spyral.shape != (int(np.sum(counts)), 8) or len(labels) != len(
+                spyral):
+            raise AssertionError("malformed Spyral rows")
+        self.rows += len(spyral)
+        self.events += len(counts)
+
+    def close(self) -> None:
+        self.closed = True
+
+
+class HostAssemblySpy:
+    """Counts the calls of the host assembly (``DetectorSimulator.
+    assemble_spyral_ordered`` and the C++ library's
+    ``native_assemble_batch``) while it is entered, and keeps a copy on
+    the card of every ``assemble_device`` call's packed rows, counts and
+    event ids, so that the rows can be assembled on the host afterwards."""
+
+    def __enter__(self):
+        from attpc_engine_tpu_torch import native
+        from attpc_engine_tpu_torch.detector import simulator
+
+        self.host_calls, self.assembled = [], []
+        cls = simulator.DetectorSimulator
+        self._saved = [(cls, "assemble_spyral_ordered"),
+                       (cls, "assemble_device"),
+                       (native, "native_assemble_batch")]
+        self._saved = [(o, n, getattr(o, n)) for o, n in self._saved]
+        (_, _, host), (_, _, dev), (_, _, nat) = self._saved
+
+        def spy_host(*a, **k):
+            self.host_calls.append("assemble_spyral_ordered")
+            return host(*a, **k)
+
+        def spy_native(*a, **k):
+            self.host_calls.append("native_assemble_batch")
+            return nat(*a, **k)
+
+        def spy_device(sim, packed, counts, event_ids, seed):
+            self.assembled.append((packed.clone(),
+                                   torch.as_tensor(counts).clone(),
+                                   torch.as_tensor(event_ids).clone()))
+            return dev(sim, packed, counts, event_ids, seed)
+
+        cls.assemble_spyral_ordered = spy_host
+        cls.assemble_device = spy_device
+        native.native_assemble_batch = spy_native
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in self._saved:
+            setattr(obj, name, fn)
+        return False
+
+
+def drive(config, engine, stop_event=None, reader=None, writer=None):
     """``run_reader`` over ``reader`` (the committed kinematics by default)
-    into a MemoryWriter on the card, seed SEED, recording each dispatch's
-    budgets (DetectorSimulator.simulate_batch's event_start, n_steps and
-    point_budget). Returns (stats, writer, dispatches, wall seconds)."""
+    into ``writer`` (a MemoryWriter by default) on the card, seed SEED,
+    recording each dispatch's budgets (DetectorSimulator.simulate_batch's
+    event_start, n_steps and point_budget) under a HostAssemblySpy.
+    Returns (stats, writer, dispatches, wall seconds, spy)."""
     from attpc_engine_tpu_torch.detector import simulator
 
     calls = []
@@ -1153,21 +1417,56 @@ def drive(config, engine, stop_event=None, reader=None):
                                              "out_budget")})
         return real(self, vertices, momenta, **kw)
 
-    writer = MemoryWriter()
+    writer = writer or MemoryWriter()
     simulator.DetectorSimulator.simulate_batch = spy
     try:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stats = simulator.run_reader(config, reader or NpzReader(), writer,
-                                     engine=engine, seed=SEED,
-                                     show_progress=False, auto_tune=True,
-                                     stop_event=stop_event, device="cuda")
-        wall = time.perf_counter() - t0
+        with HostAssemblySpy() as asm_spy:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            stats = simulator.run_reader(
+                config, reader or NpzReader(), writer, engine=engine,
+                seed=SEED, show_progress=False, auto_tune=True,
+                stop_event=stop_event, device="cuda")
+            wall = time.perf_counter() - t0
     finally:
         simulator.DetectorSimulator.simulate_batch = real
     if not writer.closed:
         raise AssertionError("the driver did not close its writer")
-    return stats, writer, calls, wall
+    return stats, writer, calls, wall, asm_spy
+
+
+def check_assembled(sim, label: str, writer, asm_spy, launches: dict) -> None:
+    """A driver run's in-process path assembled on the card: the assembly
+    kernel launched once a batch, the host assembly never called, and each
+    batch's rows equal, bit for bit, the C++ library's assembly of the same
+    packed rows (run after the driver)."""
+    n = len(writer.batches)
+    if asm_spy.host_calls or launches["assemble"] != n or len(
+            asm_spy.assembled) != n:
+        raise AssertionError(
+            f"{label}: {launches['assemble']} assembly launches and "
+            f"{len(asm_spy.assembled)} device assemblies for {n} batches, "
+            f"host assembly calls {asm_spy.host_calls}")
+    for i, ((packed, counts, events), batch) in enumerate(
+            zip(asm_spy.assembled, writer.batches)):
+        events = events.cpu().numpy()
+        counts = counts.cpu().numpy()
+        ref = host_assembly(sim, packed.cpu().numpy(), counts,
+                            int(events[0]))
+        same_bits(f"{label}: batch {i} vs the C++ library's assembly of its "
+                  f"packed rows", batch, ref + (counts, events))
+
+
+def writer_phases(stats: dict, batches: int) -> str:
+    """The driver's phase times a batch: the main thread's assembly launch
+    and pulls, the writer thread's copy-out and write."""
+    sec = stats["phase_seconds"]
+    main = ("dispatch", "pull-meta", "assemble-device", "pull-start")
+    writer = ("pull-spyral", "h5py-write")
+    fmt = ", ".join(f"{k} {1e3 * sec.get(k, 0.0) / batches:.3f}"
+                    for k in main + writer)
+    thread = 1e3 * sum(sec.get(k, 0.0) for k in writer) / batches
+    return f"ms a batch: {fmt}; writer thread {thread:.3f}"
 
 
 def same_rows(label: str, got, ref) -> None:
@@ -1230,7 +1529,7 @@ def driver_path(sim, phase4: dict, card: str) -> dict:
                                                      SEED)
         ref.append((spyral, labels, counts, events))
     reset_counts()
-    stats, writer, calls, wall = drive(
+    stats, writer, calls, wall, asm_spy = drive(
         sim.config, EngineParams(events_per_batch=BATCH))
     launches, routes = read_counts(), read_routes()
     budgets = stats["budgets"]
@@ -1240,28 +1539,54 @@ def driver_path(sim, phase4: dict, card: str) -> dict:
           f", K3 by route {routes['sort_rows']} [{card}]")
     times = sorted(stats["phase_seconds"].items(), key=lambda kv: -kv[1])
     print("driver run A phase seconds: " + ", ".join(
-        f"{k} {v:.4f}" for k, v in times))
+        f"{k} {v:.4f}" for k, v in times) + "; "
+        + writer_phases(stats, len(writer.batches)))
     check_driver_run("driver", calls, budgets, launches, routes)
+    check_assembled(sim, "driver run A", writer, asm_spy, launches)
     same_rows("driver run A vs phase 4's rows assembled on the host",
               writer.batches, ref)
-    print(f"driver run A vs phase 4: the assembled rows of all "
-          f"{len(ref)} batches bit-identical")
+    print(f"driver run A: one assembly launch a batch, no host assembly; "
+          f"the rows of all {len(ref)} batches bit-identical to the C++ "
+          f"library's assembly of the same packed rows and of phase 4's")
 
-    stats_b, writer_b, calls_b, wall_b = drive(
+    reset_counts()
+    stats_c, writer_c, _, wall_c, spy_c = drive(
+        sim.config, EngineParams(events_per_batch=BATCH),
+        writer=CountingWriter())
+    launches_c = read_counts()
+    n_c = len(spy_c.assembled)
+    if (writer_c.events != stats_c["events"] or spy_c.host_calls
+            or launches_c["assemble"] != n_c):
+        raise AssertionError(f"driver run C: {writer_c.events} events "
+                             f"written, launches {launches_c}, host "
+                             f"assembly calls {spy_c.host_calls}")
+    del spy_c
+    print(f"driver run C (a writer that keeps nothing): {stats_c['events']} "
+          f"events, {writer_c.rows} rows in {wall_c:.3f} s, "
+          f"{stats_c['events'] / wall_c:.1f} events/s end to end; "
+          f"{writer_phases(stats_c, n_c)} [{card}]")
+
+    reset_counts()
+    stats_b, writer_b, calls_b, wall_b, spy_b = drive(
         sim.config, EngineParams(events_per_batch=BATCH, point_budget=256),
         stop_event=2 * BATCH)
+    check_assembled(sim, "driver run B", writer_b, spy_b, read_counts())
     first = [c for c in calls_b if c["event_start"] == 0]
     if [c["point_budget"] for c in first] != [256, 512]:
         raise AssertionError(f"driver run B: first batch dispatches {first},"
                              f" expected one retry on 'point'")
     same_rows("driver run B vs run A", writer_b.batches, writer.batches[:2])
     print(f"driver run B (point_budget 256): first batch retried once on "
-          f"'point' ({first}); budgets {stats_b['budgets']}; rows "
+          f"'point' ({first}), the assembly launched once a batch (not for "
+          f"the overflowing dispatch); budgets {stats_b['budgets']}; rows "
           f"bit-identical to run A's [{card}]")
     return {"launches": launches, "routes": routes, "budgets": budgets,
             "wall_s": wall, "events_per_s": stats["events"] / wall,
             "phase_seconds": stats["phase_seconds"], "dispatches": calls,
-            "run_b_dispatches": calls_b, "run_b_budgets": stats_b["budgets"]}
+            "run_b_dispatches": calls_b, "run_b_budgets": stats_b["budgets"],
+            "run_c_wall_s": wall_c,
+            "run_c_events_per_s": stats_c["events"] / wall_c,
+            "run_c_phase_seconds": stats_c["phase_seconds"]}
 
 
 # run_kinematics_pipeline's default batch_size: one batch a case
@@ -1463,16 +1788,19 @@ def kinematics_driver_path(sim, events_a, card: str) -> dict:
     n = 4 * BATCH
     reader = ArrayReader(vertices[:n], momenta[:n], z, a)
     reset_counts()
-    stats, writer, calls, wall = drive(
+    stats, writer, calls, wall, asm_spy = drive(
         sim.config, EngineParams(events_per_batch=BATCH), reader=reader)
     launches, routes = read_counts(), read_routes()
     budgets = stats["budgets"]
     check_driver_run("4i", calls, budgets, launches, routes)
     rows = check_spyral_rows(sim, writer.batches, n)
+    check_assembled(sim, "4i", writer, asm_spy, launches)
     print(f"4i, the two-stage chain: {stats['events']} card-sampled events, "
           f"{rows} rows in {wall:.3f} s, {stats['events'] / wall:.1f} "
           f"events/s end to end; tuned budgets {budgets}; launches "
-          f"{launches}, K3 by route {routes['sort_rows']} [{card}]")
+          f"{launches}, K3 by route {routes['sort_rows']}; rows "
+          f"bit-identical to the C++ library's assembly of the same packed "
+          f"rows; {writer_phases(stats, len(writer.batches))} [{card}]")
     check_against_cpu(sim, vertices[:BATCH], momenta[:BATCH])
     return {"launches": launches, "routes": routes, "budgets": budgets,
             "wall_s": wall, "events_per_s": stats["events"] / wall,
@@ -1517,18 +1845,22 @@ def multihost_child(events_path: str, out_path: str) -> int:
     free, total = torch.cuda.mem_get_info(device)
     writer = MemoryWriter()
     reset_counts()
-    t0 = time.time()
-    stats = run_reader(flagship_config(), reader, writer,
-                       engine=EngineParams(events_per_batch=BATCH), seed=SEED,
-                       show_progress=False, start_event=plan.start,
-                       stop_event=plan.stop, auto_tune=True, device=device)
-    t1 = time.time()
+    with HostAssemblySpy() as asm_spy:
+        t0 = time.time()
+        stats = run_reader(flagship_config(), reader, writer,
+                           engine=EngineParams(events_per_batch=BATCH),
+                           seed=SEED, show_progress=False,
+                           start_event=plan.start, stop_event=plan.stop,
+                           auto_tune=True, device=device)
+        t1 = time.time()
     info = {"rank": pid, "world_size": nproc, "device": str(device),
             "start": plan.start, "stop": plan.stop, "t0": t0, "t1": t1,
             "events": stats["events"], "rows": stats["rows"],
             "budgets": stats["budgets"],
             "phase_seconds": stats["phase_seconds"],
             "launches": read_counts(), "routes": read_routes(),
+            "batches": len(writer.batches),
+            "host_assembly_calls": len(asm_spy.host_calls),
             "build": kernels.build_seconds(),
             "mem_free_total_bytes": [free, total],
             "max_memory_allocated": torch.cuda.max_memory_allocated(device)}
@@ -1546,18 +1878,36 @@ def multihost_path(sim, events_a, card: str) -> dict:
     vertices, momenta, z, a = events_a
     n = MULTIHOST_EVENTS
     reset_counts()
-    stats, writer, calls, wall = drive(
+    stats, writer, calls, wall, asm_spy = drive(
         sim.config, EngineParams(events_per_batch=BATCH),
         reader=ArrayReader(vertices[:n], momenta[:n], z, a))
     launches, routes = read_counts(), read_routes()
     check_driver_run("4m single process", calls, stats["budgets"], launches,
                      routes)
+    check_assembled(sim, "4m single process", writer, asm_spy, launches)
+    del asm_spy
     single = rows_of(writer)
+    single_phases = writer_phases(stats, len(writer.batches))
     del writer
     single_rate = n / wall
+    reset_counts()
+    stats_c, writer_c, _, wall_c, spy_c = drive(
+        sim.config, EngineParams(events_per_batch=BATCH),
+        reader=ArrayReader(vertices[:n], momenta[:n], z, a),
+        writer=CountingWriter())
+    if (writer_c.events != n or spy_c.host_calls
+            or read_counts()["assemble"] != len(spy_c.assembled)):
+        raise AssertionError("4m single process, a writer that keeps "
+                             "nothing: events, launches or host calls off")
+    counting = (f"{n / wall_c:.1f} events/s into a writer that keeps "
+                f"nothing ({wall_c:.3f} s; "
+                f"{writer_phases(stats_c, len(spy_c.assembled))})")
+    del spy_c
     print(f"4m single process: {n} events, {stats['rows']} rows in "
           f"{wall:.3f} s, {single_rate:.1f} events/s end to end; tuned "
-          f"budgets {stats['budgets']} [{card}]")
+          f"budgets {stats['budgets']}; rows bit-identical to the C++ "
+          f"library's assembly of the same packed rows; {single_phases}; "
+          f"{counting} [{card}]")
     library = kernels.build_seconds()["library"]
     torch.cuda.empty_cache()  # the children share the card
     with tempfile.TemporaryDirectory() as tmp:
@@ -1611,6 +1961,12 @@ def multihost_path(sim, events_a, card: str) -> dict:
     for _, info in children:
         label = f"4m process {info['rank']}"
         check_default_launches(label, info["launches"], info["routes"])
+        if (info["launches"]["assemble"] != info["batches"]
+                or info["host_assembly_calls"]):
+            raise AssertionError(
+                f"{label}: {info['launches']['assemble']} assembly launches "
+                f"for {info['batches']} batches, "
+                f"{info['host_assembly_calls']} host assembly calls")
         if info["build"]["built"] or info["build"]["library"] != library:
             raise AssertionError(f"{label}: built {info['build']}, expected "
                                  f"to load {library} as built by phase 2")
@@ -1638,6 +1994,9 @@ def multihost_path(sim, events_a, card: str) -> dict:
           f"process on the same events [{card}]")
     return {"launches": summed, "routes": summed_routes,
             "single_events_per_s": single_rate, "single_wall_s": wall,
+            "single_phase_seconds": stats["phase_seconds"],
+            "single_counting_events_per_s": n / wall_c,
+            "single_counting_phase_seconds": stats_c["phase_seconds"],
             "union_events_per_s": union_rate, "union_window_s": window,
             "processes": [c[1] for c in children]}
 
@@ -1780,6 +2139,7 @@ def main() -> int:
                                                    2**31 - 1), card),
     }
     del sim_fused, sim_two_stage
+    res["assemble"] = check_assemble(sim, paths["default"]["batches"], card)
     sim_retry, _, _ = flagship_simulator(
         "cuda", point_budget=RETRY_POINT_BUDGET)
     paths["retry_width"] = main_path(
@@ -1839,6 +2199,8 @@ def main() -> int:
     for name, (_, _, src, replaces, path) in KERNELS.items():
         row = {"name": name, "route": "cuda", "source": src,
                "replaces": replaces, "path": path,
+               **({"replaces_note": HOST_STAGES[name]}
+                  if name in HOST_STAGES else {}),
                "launches": paths[path]["launches"][name],
                "launches_by_path": {p: paths[p]["launches"][name]
                                     for p in paths},
@@ -1877,6 +2239,12 @@ def main() -> int:
     print(json.dumps({
         "kernels": rows,
         "main_path_ms_per_batch": paths["default"]["ms_per_batch"],
+        "main_path_assemble_ms_per_batch": paths["default"][
+            "assemble_ms_per_batch"],
+        "main_path_assembled_copy_ms_per_batch": paths["default"][
+            "assembled_copy_ms_per_batch"],
+        "main_path_host_assembly_ms_per_batch": paths["default"][
+            "host_assembly_ms_per_batch"],
         "events_per_s": paths["default"]["events_per_s"],
         "fused_path_ms_per_batch": paths["fused"]["ms_per_batch"],
         "fused_events_per_s": paths["fused"]["events_per_s"],
@@ -1887,7 +2255,8 @@ def main() -> int:
         "tuned_step_ms_per_batch": paths["tuned_step"]["ms_per_batch"],
         "driver": {k: paths["driver"][k] for k in (
             "budgets", "wall_s", "events_per_s", "phase_seconds",
-            "dispatches", "run_b_dispatches", "run_b_budgets")},
+            "dispatches", "run_b_dispatches", "run_b_budgets",
+            "run_c_wall_s", "run_c_events_per_s", "run_c_phase_seconds")},
         "kinematics": {k: paths["kinematics"][k] for k in (
             "cases", "events_per_s")},
         "kinematics_driver": {k: paths["kinematics_driver"][k] for k in (

@@ -9,10 +9,13 @@ the JAX package (the card's Python needs neither jax nor h5py for it):
 Bounds: K1 alive flags exact, positions within 1e-6 m, |dKE| within
 1e-4 MeV (tests/test_transport_pallas.py); K2 and K7 (one quad kernel), K3
 (both routes), K6 and the deposit-rows kernel bit-exact; K5 (both routes)
-key2 and n_uniq exact and c2 bit-exact. A wrapper given a CUDA tensor it
-cannot take raises: nothing falls back.
+key2 and n_uniq exact and c2 bit-exact; the Spyral assembly
+(``csrc/assemble.cu``) bit-exact against its plain version and the C++
+library. A wrapper given a CUDA tensor it cannot take raises: nothing
+falls back.
 """
 
+import importlib.util
 from pathlib import Path
 
 import numpy as np
@@ -29,6 +32,7 @@ from attpc_engine_tpu_torch.detector import (
     PadParams,
 )
 from attpc_engine_tpu_torch.detector import (
+    assemble_cuda,
     deposit_cuda,
     deposition,
     merge_cuda,
@@ -42,6 +46,22 @@ pytestmark = pytest.mark.cuda
 
 SMOKE = (Path(__file__).resolve().parents[1] / "attpc_engine_tpu_torch"
          / "data" / "smoke_kinematics.npz")
+
+
+def _load_assemble_cases():
+    """tests/assemble_cases.py by its path: the card's Python has a package
+    named ``tests`` of its own, which ``tests.assemble_cases`` would
+    find."""
+    spec = importlib.util.spec_from_file_location(
+        "assemble_cases", Path(__file__).with_name("assemble_cases.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+_cases = _load_assemble_cases()
+edge_events, forged_tie, pool = (_cases.edge_events, _cases.forged_tie,
+                                 _cases.pool)
 SENT = 2**31 - 1
 
 
@@ -634,6 +654,29 @@ def test_host_copies_reuse_buffers_of_two_sizes(cuda_device):
     assert len(copies.free) >= 2
 
 
+def test_host_copies_lend_pinned_rows(cuda_device):
+    """The driver's copies of assembled rows lent to the writer: the views
+    hold the rows, a buffer whose array the writer kept leaves the pool,
+    and the next copy into a recycled buffer leaves the kept rows alone."""
+    from attpc_engine_tpu_torch.detector.simulator import _HostCopies
+
+    copies = _HostCopies(cuda_device)
+    kept = []
+    srcs = [torch.full((1000, 8), float(i), dtype=torch.float64,
+                       device=cuda_device) for i in range(4)]
+    for i, src in enumerate(srcs):
+        handle = copies.start(src)
+
+        def use(rows, i=i):
+            assert rows.shape == (1000, 8) and (rows == i).all()
+            if i == 1:
+                kept.append(rows)
+
+        copies.lend([handle], use)
+    assert (kept[0] == 1).all()
+    assert len(copies.free) == 1  # the kept buffer left the pool
+
+
 @pytest.mark.parametrize("chain", ["chain", "resample"])
 def test_kinematics_on_the_card_equals_cpu(cuda_device, chain):
     """The kinematics stage on the card against the CPU on the same seed:
@@ -702,3 +745,123 @@ def test_concurrent_first_users_run_one_build(cuda_device, tmp_path):
     assert sorted(b["built"] for b in builds) == [False, True]
     assert builds[0]["library"] == builds[1]["library"]
     assert [p.name for p in build.glob("*.so")] == [builds[0]["library"]]
+
+
+def _bits(x: torch.Tensor | np.ndarray) -> np.ndarray:
+    x = x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+    return np.ascontiguousarray(x).view(np.int64)
+
+
+def _assemble_args(packed, counts, events):
+    return (torch.from_numpy(packed).cuda(),
+            torch.from_numpy(counts).to("cuda", torch.int32),
+            torch.from_numpy(np.asarray(events, np.int64)).cuda())
+
+
+def test_assemble_kernel_matches_plain_and_the_cpp_library(cuda_device):
+    """The assembly kernel against its plain version on the card and the
+    C++ library (``native_assemble_batch``) on the host, bit for bit: the
+    step's rows of 16 flagship events and every edge case of
+    tests/assemble_cases.py, seeds 0 and past 2^63, event ids from 0 and
+    past 2^32; one launch a call."""
+    from attpc_engine_tpu_torch.detector.assemble import assemble_plain
+    from attpc_engine_tpu_torch.native import native_assemble_batch
+
+    sim, vert, mom = _simulator(cuda_device, n_time_steps=1000,
+                                events_per_batch=16)
+    out = sim.simulate_batch(vert[:16], mom[:16], seed=1, assemble=False)
+    counts = out["spyral_counts"].cpu().numpy().astype(np.int64)
+    step = (out["packed"][:counts.sum()].cpu().numpy(), counts)
+    edge = pool(edge_events(sim._native_tables(), np.random.default_rng(4)))
+    tables = sim._assemble_tables()
+    for packed, counts in (step, edge):
+        assert counts.sum() > 100
+        for seed, first in ((0, 0), (2**63 + 12345, 2**32 + 9)):
+            events = np.arange(first, first + len(counts))
+            args = _assemble_args(packed, counts, events)
+            before = assemble_cuda.launches
+            got = assemble_cuda.assemble_cuda(*args, seed, tables)
+            torch.cuda.synchronize()
+            assert assemble_cuda.launches == before + 1
+            plain = assemble_plain(*args, seed, tables)
+            ref = native_assemble_batch(packed, counts, first, seed,
+                                        sim._native_tables())
+            assert ref is not None
+            for g, p, r in zip(got, plain, ref):
+                np.testing.assert_array_equal(_bits(g), _bits(p))
+                np.testing.assert_array_equal(_bits(g), _bits(r))
+
+
+def test_assemble_kernel_keeps_ties_of_a_rounded_wiggle(cuda_device):
+    """A forged wiggle that rounds tb + w up to the next integer tb: the
+    kernel keeps the stable order over the whole event, as its plain
+    version does."""
+    from attpc_engine_tpu_torch.detector.assemble import assemble_plain
+
+    sim, _, _ = _simulator(cuda_device)
+    packed, counts, wiggle, n = forged_tie()
+    args = _assemble_args(packed, counts, np.arange(2))
+    w = torch.from_numpy(wiggle).cuda()
+    tables = sim._assemble_tables()
+    got = assemble_cuda.assemble_cuda(*args, 3, tables, wiggle=w)
+    plain = assemble_plain(*args, 3, tables, wiggle=w)
+    for g, p in zip(got, plain):
+        np.testing.assert_array_equal(_bits(g), _bits(p))
+    order = got[0][:n, 5].long().cpu().numpy() - 100
+    assert order[:4].tolist() == [0, 2, 1, 3]
+
+
+def test_assemble_kernel_rejects_what_it_cannot_take(cuda_device):
+    sim, _, _ = _simulator(cuda_device)
+    packed, counts, _, _ = forged_tie()
+    args = _assemble_args(packed, counts, np.arange(2))
+    tables = sim._assemble_tables()
+    with pytest.raises(ValueError):
+        assemble_cuda.assemble_cuda(args[0].cpu(), *args[1:], 1, tables)
+    with pytest.raises(ValueError):
+        assemble_cuda.assemble_cuda(args[0], args[1].long(), args[2], 1,
+                                    tables)
+    with pytest.raises(ValueError):
+        assemble_cuda.assemble_cuda(args[0][:, :1].contiguous(), *args[1:],
+                                    1, tables)
+
+
+def test_run_reader_assembles_on_the_card(cuda_device, monkeypatch):
+    """The driver's in-process path on the card: one assembly launch a
+    batch, no host assembly, and rows equal to the host assembly of the
+    same packed rows."""
+    from attpc_engine_tpu_torch import native
+    from attpc_engine_tpu_torch.detector import simulator
+    from attpc_engine_tpu_torch.detector.simulator import run_reader
+
+    engine = EngineParams(n_time_steps=1000, chunk_steps=250,
+                          events_per_batch=8)
+    sim, vert, mom = _simulator(cuda_device, n_time_steps=1000,
+                                chunk_steps=250, events_per_batch=8)
+    refs = []
+    for start in range(0, 24, 8):
+        out = sim.simulate_batch(vert[start:start + 8], mom[start:start + 8],
+                                 seed=3, event_start=start, assemble=False)
+        counts = out["spyral_counts"].cpu().numpy()
+        refs.append(sim.assemble_spyral_ordered(
+            out["packed"][:counts.sum()].cpu().numpy(), counts,
+            np.arange(start, start + 8), 3))
+
+    def host_assembly(*args, **kw):
+        raise AssertionError("the host assembly ran")
+
+    monkeypatch.setattr(native, "native_assemble_batch", host_assembly)
+    monkeypatch.setattr(simulator.DetectorSimulator,
+                        "assemble_spyral_ordered", host_assembly)
+    writer = _PoolWriter()
+    before = assemble_cuda.launches
+    stats = run_reader(sim.config, _ArrayReader(24), writer, engine=engine,
+                       seed=3, show_progress=False, auto_tune=False,
+                       device=cuda_device)
+    assert assemble_cuda.launches == before + 3
+    assert "assemble-device" in stats["phase_seconds"]
+    assert "assemble" not in stats["phase_seconds"]
+    assert len(writer.batches) == 3
+    for (spyral, labels, _, _), (rs, rl) in zip(writer.batches, refs):
+        np.testing.assert_array_equal(_bits(spyral), _bits(rs))
+        np.testing.assert_array_equal(labels, rl)

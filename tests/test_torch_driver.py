@@ -28,6 +28,7 @@ import glob
 import json
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import h5py
@@ -385,6 +386,134 @@ def test_host_copies_take_a_free_buffer_by_position():
     assert len(copies.free) == 1 and copies.free[0] is other
 
 
+def test_host_copies_match_the_sources_type_and_row_shape():
+    """With ``like``, the pool hands out only a buffer of the source's type
+    and row shape (the driver pools f64 Spyral rows and int64 labels side
+    by side); without it, any buffer of enough rows."""
+    copies = tsimulator._HostCopies(torch.device("cpu"))
+    labels, rows = torch.zeros(65536, dtype=torch.int64), torch.zeros(
+        65536, 8, dtype=torch.float64)
+    copies.free = [labels, rows]
+    assert copies.take_free(10, like=torch.zeros(3, 8,
+                                                 dtype=torch.float64)) is rows
+    assert copies.take_free(10, like=torch.zeros(
+        3, dtype=torch.float64)) is None
+    assert copies.take_free(10, like=torch.zeros(
+        3, dtype=torch.int64)) is labels
+    assert copies.free == []
+
+
+def test_host_copies_lend_keeps_a_buffer_the_writer_kept():
+    """``lend`` hands the writer views of the copies' buffers and returns
+    each buffer to the pool afterwards, unless the writer kept its array
+    or a view of it: then the buffer leaves the pool with the array, and
+    no later copy overwrites what the writer kept. (The pinned path's
+    bookkeeping, run on CPU buffers.)"""
+
+    class Done:
+        def synchronize(self):
+            pass
+
+    copies = tsimulator._HostCopies(torch.device("cpu"))
+    copies.cuda = True
+    bufs = [torch.arange(10.0).reshape(5, 2), torch.arange(8).reshape(8, 1)]
+    seen, kept = [], []
+
+    def use(rows, labels):
+        seen.append((rows.shape, labels.shape, float(rows.sum())))
+        kept.append(labels[1:])  # a view of the second array
+
+    copies.lend([(bufs[0], 3, Done()), (bufs[1], 4, Done())], use)
+    assert seen == [((3, 2), (4, 1), 15.0)]
+    assert [id(b) for b in copies.free] == [id(bufs[0])]
+    assert kept[0][:, 0].tolist() == [1, 2, 3]
+    copies.free = []
+    copies.lend([(bufs[0], 5, Done()), (bufs[1], 8, Done())],
+                lambda rows, labels: None)
+    assert [id(b) for b in copies.free] == [id(bufs[0]), id(bufs[1])]
+
+
+def test_host_copies_pool_under_two_threads():
+    """The pool's free list is taken on the main thread and refilled on the
+    writer thread: under a short switch interval, eight threads taking and
+    returning four buffers never hold one buffer twice."""
+    copies = tsimulator._HostCopies(torch.device("cpu"))
+    copies.free = [torch.zeros(65536, 2) for _ in range(4)]
+    held, guard, errors = set(), threading.Lock(), []
+
+    def worker():
+        for _ in range(2000):
+            buf = copies.take_free(10, like=torch.zeros(1, 2))
+            if buf is None:
+                continue
+            with guard:
+                if id(buf) in held:
+                    errors.append(id(buf))
+                held.add(id(buf))
+            with guard:
+                held.discard(id(buf))
+            with copies.lock:  # as finish returns a buffer
+                copies.free.append(buf)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=worker) for _ in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert not errors and len(copies.free) == 4
+    assert len({id(b) for b in copies.free}) == 4
+
+
+def test_in_process_path_assembles_on_the_device(kine, tmp_path,
+                                                  monkeypatch):
+    """run_simulation into a SpyralWriter assembles each batch once, through
+    ``assemble_device`` (on the CPU its plain version), after the batch's
+    overflow check, and never through the host assembly; its files equal
+    the host assembly's of the same packed rows."""
+    calls = []
+    real = DetectorSimulator.assemble_device
+
+    def spy(self, packed, counts, event_ids, seed):
+        calls.append(np.asarray(event_ids).tolist())
+        return real(self, packed, counts, event_ids, seed)
+
+    def host(*args, **kw):
+        raise AssertionError("the host assembly ran")
+
+    monkeypatch.setattr(DetectorSimulator, "assemble_device", spy)
+    monkeypatch.setattr(DetectorSimulator, "assemble_spyral_ordered", host)
+    stats = _run(kine, tmp_path / "dev", engine=_engine(point_budget=64))
+    assert calls == [[0, 1, 2, 3], [4, 5, 6, 7]]
+    assert stats["budgets"]["point"] > 64  # the first batch was retried
+    monkeypatch.undo()
+    sim = DetectorSimulator(torch_config(), Z, A, engine=_engine(),
+                            device="cpu")
+    files = _events(_read(tmp_path / "dev"))
+    for start in (0, 4):
+        out = sim.simulate_batch(SMOKE["vertices"][start:start + 4],
+                                 SMOKE["momenta"][start:start + 4],
+                                 seed=SEED, event_start=start,
+                                 assemble=False)
+        counts = out["spyral_counts"].numpy()
+        spyral, labels = sim.assemble_spyral_ordered(
+            out["packed"][:counts.sum()].numpy(), counts,
+            np.arange(start, start + 4), SEED)
+        offsets = np.concatenate([[0], np.cumsum(counts)])
+        for i in range(4):
+            if counts[i]:
+                cloud, lab = files[start + i]
+                np.testing.assert_array_equal(
+                    cloud, spyral[offsets[i]:offsets[i + 1]])
+                np.testing.assert_array_equal(
+                    lab, labels[offsets[i]:offsets[i + 1]])
+
+
 # ----------------------------------------------------------------------- #
 # the writers' compression and striping
 
@@ -499,8 +628,12 @@ def test_manifest_written_without_jax(kine, tmp_path):
     assert "cuda_version" in m["backend"] and m["backend"]["n_devices"] == 1
     assert m["seed"] == 5 and m["event_range"] == [0, 4]
     assert m["config"]["input"] == str(kine)
-    assert {"read", "dispatch", "pull-meta", "pull-start", "pull-packed",
-            "assemble", "h5py-write"} <= set(m["phase_seconds"])
+    # the rows are assembled by the device's assembly (here its plain
+    # version) on the main thread, copied out and written on the writer
+    # thread; the host assembly does not run
+    assert {"read", "dispatch", "pull-meta", "assemble-device", "pull-start",
+            "pull-spyral", "h5py-write"} <= set(m["phase_seconds"])
+    assert "assemble" not in m["phase_seconds"]
 
 
 def test_simulate_returns_the_batch_cloud_and_caches_by_content():

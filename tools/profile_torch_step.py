@@ -26,8 +26,9 @@ fused step when K5 was ``pack64``, K3 and the tail kernel on every width.
 ``--tuned`` profiles the default step at the window and budgets that
 ``run_simulation``'s auto-tuning gives the flagship (its batch loop,
 ``simulator.run_reader``, run over the first batch), then the whole loop
-over the 1,536 committed events under the profiler: its wall time, its
-kernels' device time and the device's idle share end to end, and its
+over the 1,536 committed events under the profiler, into a writer that
+copies the rows it keeps and into one that keeps nothing: its wall time,
+its kernels' device time and the device's idle share end to end, and its
 phase times.
 
 ``--transport-steps`` instead builds K1 (``csrc/transport.cu``) with
@@ -543,27 +544,33 @@ def tuned_budgets() -> dict:
 
 def profile_driver(sim) -> None:
     """The driver's batch loop over the 1,536 committed events under the
-    profiler: wall, kernels' device time, device idle share, phases."""
+    profiler, into a writer that copies the rows it keeps
+    (``chip_smoke.MemoryWriter``) and into one that keeps nothing
+    (``chip_smoke.CountingWriter``, the driver's own pace): wall, kernels'
+    device time, device idle share, phases."""
     from attpc_engine_tpu_torch.detector import EngineParams, simulator
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        stats = simulator.run_reader(
-            sim.config, chip_smoke.NpzReader(), chip_smoke.MemoryWriter(),
-            engine=EngineParams(events_per_batch=chip_smoke.BATCH), seed=1,
-            show_progress=False, device="cuda")
-        wall = time.perf_counter() - t0
-    dev_us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and e.key not in STAGES.values())
-    phases = ", ".join(f"{k} {v:.4f}" for k, v in sorted(
-        stats["phase_seconds"].items(), key=lambda kv: -kv[1]))
-    print(f"driver over {stats['events']} events under the profiler: wall "
-          f"{wall:.3f} s ({stats['events'] / wall:.1f} events/s), kernel "
-          f"device time {dev_us / 1e6:.4f} s, device idle share "
-          f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}; budgets "
-          f"{stats['budgets']}; phase seconds: {phases}")
+    for writer in (chip_smoke.MemoryWriter(), chip_smoke.CountingWriter()):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            stats = simulator.run_reader(
+                sim.config, chip_smoke.NpzReader(), writer,
+                engine=EngineParams(events_per_batch=chip_smoke.BATCH),
+                seed=1, show_progress=False, device="cuda")
+            wall = time.perf_counter() - t0
+        dev_us = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.key not in STAGES.values())
+        phases = ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+            stats["phase_seconds"].items(), key=lambda kv: -kv[1]))
+        print(f"driver over {stats['events']} events into a "
+              f"{type(writer).__name__} under the profiler: wall "
+              f"{wall:.3f} s ({stats['events'] / wall:.1f} events/s), kernel "
+              f"device time {dev_us / 1e6:.4f} s, device idle share "
+              f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}; budgets "
+              f"{stats['budgets']}; phase seconds: {phases}")
 
 
 if __name__ == "__main__":
