@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from ..kernels import require_device
+from ..utils.profiling import stage
 from .deposit_cuda import (
     deposit_rows_cuda,
     packed_key_lookup,
@@ -475,101 +476,111 @@ def deposit_and_merge(
         raise ValueError(f"too many tracks per event ({k_tracks}) to pack")
     u_cap = min(uniq_budget, pb * MESH_STEPS * MESH_STEPS)
 
-    # electrons >= 1 is part of validity (reference solver.py:387-389)
-    valid = valid & (electrons >= 1)
+    with stage("step.deposit"):
+        # electrons >= 1 is part of validity (reference solver.py:387-389)
+        valid = valid & (electrons >= 1)
 
-    # z -> float TB (reference solver.py:394-398); tb_f in (-1, 0)
-    # truncates to 0 and survives, so the keep condition is tb_f > -1
-    tb_f = (length - positions[:, :, 2]) / drift_velocity + micromegas_edge
-    tb_i = tb_f.to(i32)
-    valid = valid & (tb_f > -1.0) & (tb_i < NUM_TB)
+        # z -> float TB (reference solver.py:394-398); tb_f in (-1, 0)
+        # truncates to 0 and survives, so the keep condition is tb_f > -1
+        tb_f = ((length - positions[:, :, 2]) / drift_velocity
+                + micromegas_edge)
+        tb_i = tb_f.to(i32)
+        valid = valid & (tb_f > -1.0) & (tb_i < NUM_TB)
 
-    # --- per-event point-window compaction ------------------------------ #
-    kt = k_tracks * t_steps
+        # --- per-event point-window compaction -------------------------- #
+        kt = k_tracks * t_steps
 
-    def ev_flat(a):  # [T, B] -> [E * K * T] in (event, nucleus, time) order
-        return a.transpose(0, 1).reshape(e * kt)
+        # [T, B] -> [E * K * T] in (event, nucleus, time) order
+        def ev_flat(a):
+            return a.transpose(0, 1).reshape(e * kt)
 
-    valid_r = ev_flat(valid).reshape(e, kt)
-    n_points = valid_r.sum(dim=1, dtype=i32)
-    pool_overflow = torch.clamp(n_points - pb, min=0).sum(dtype=i32)
+        valid_r = ev_flat(valid).reshape(e, kt)
+        n_points = valid_r.sum(dim=1, dtype=i32)
+        pool_overflow = torch.clamp(n_points - pb, min=0).sum(dtype=i32)
 
-    slot = torch.cumsum(valid_r.to(i32), dim=1, dtype=i32) - 1
-    row = torch.arange(e, dtype=i32, device=dev)[:, None]
-    # invalid or overflowing points go to the spare slot p, dropped below
-    dest = torch.where(valid_r & (slot < pb), row * pb + slot,
-                       torch.full_like(slot, p))
-    src = torch.full((p + 1,), -1, dtype=i32, device=dev)
-    src.scatter_(0, dest.reshape(-1).long(),
-                 torch.arange(e * kt, dtype=i32, device=dev))
-    src = src[:p]
-    taken = src >= 0
-    gsrc = torch.clamp(src, min=0).long()
+        slot = torch.cumsum(valid_r.to(i32), dim=1, dtype=i32) - 1
+        row = torch.arange(e, dtype=i32, device=dev)[:, None]
+        # invalid or overflowing points go to the spare slot p, dropped below
+        dest = torch.where(valid_r & (slot < pb), row * pb + slot,
+                           torch.full_like(slot, p))
+        src = torch.full((p + 1,), -1, dtype=i32, device=dev)
+        src.scatter_(0, dest.reshape(-1).long(),
+                     torch.arange(e * kt, dtype=i32, device=dev))
+        src = src[:p]
+        taken = src >= 0
+        gsrc = torch.clamp(src, min=0).long()
 
-    px = ev_flat(positions[:, :, 0])[gsrc]
-    py = ev_flat(positions[:, :, 1])[gsrc]
-    ptbf = ev_flat(tb_f)[gsrc]
-    ptbi = ev_flat(tb_i)[gsrc]
-    pne = ev_flat(electrons)[gsrc].to(f32)  # gain is applied after the merge
-    prank = ((gsrc // t_steps) % k_tracks).to(i32)
+        px = ev_flat(positions[:, :, 0])[gsrc]
+        py = ev_flat(positions[:, :, 1])[gsrc]
+        ptbf = ev_flat(tb_f)[gsrc]
+        ptbi = ev_flat(tb_i)[gsrc]
+        # the gain is applied after the merge
+        pne = ev_flat(electrons)[gsrc].to(f32)
+        prank = ((gsrc // t_steps) % k_tracks).to(i32)
 
-    # --- diffusion mesh, pad lookup, pixel charges ---------------------- #
-    tbr = (ptbi << rank_bits) | prank
-    phys = (grid_lo_mm, grid_n_mm, diffusion, efield, drift_velocity)
-    if merge == "sorts" and lookup == "two_stage":
+        # --- diffusion mesh, pad lookup, pixel charges ------------------ #
+        tbr = (ptbi << rank_bits) | prank
+        phys = (grid_lo_mm, grid_n_mm, diffusion, efield, drift_velocity)
         # one kernel writes the int64 rows the first merge sort takes
-        rows = deposit_rows(*(a.reshape(e, pb) for a in (
-            px, py, ptbf, pne, tbr, taken)), pad_table, *phys, rank_bits)
-        key2, sums, valid2, n_uniq = _merge_rows(rows, u_cap, rank_bits)
-    else:
-        lookup_fn = (packed_key_lookup if lookup == "two_stage"
-                     else packed_key_lookup_rows)
-        keys, q = pixel_keys_charges(lookup_fn, px, py, ptbf, pne, tbr, taken,
-                                     pad_table, *phys, rank_bits)
-        w = pb * MESH_STEPS * MESH_STEPS
-        key2, sums, valid2, n_uniq = _merge_runs(
-            keys.reshape(e, w), q.reshape(e, w), u_cap, rank_bits, merge)
-    uniq_max = n_uniq.max()
-    uniq_overflow = torch.clamp(n_uniq - u_cap, min=0).sum(dtype=i32)
-    counts = torch.clamp(n_uniq, max=u_cap)
+        rows_kernel = merge == "sorts" and lookup == "two_stage"
+        if rows_kernel:
+            rows = deposit_rows(*(a.reshape(e, pb) for a in (
+                px, py, ptbf, pne, tbr, taken)), pad_table, *phys, rank_bits)
+        else:
+            lookup_fn = (packed_key_lookup if lookup == "two_stage"
+                         else packed_key_lookup_rows)
+            keys, q = pixel_keys_charges(lookup_fn, px, py, ptbf, pne, tbr,
+                                         taken, pad_table, *phys, rank_bits)
+    with stage("step.merge"):
+        if rows_kernel:
+            key2, sums, valid2, n_uniq = _merge_rows(rows, u_cap, rank_bits)
+        else:
+            w = pb * MESH_STEPS * MESH_STEPS
+            key2, sums, valid2, n_uniq = _merge_runs(
+                keys.reshape(e, w), q.reshape(e, w), u_cap, rank_bits, merge)
+        uniq_max = n_uniq.max()
+        uniq_overflow = torch.clamp(n_uniq - u_cap, min=0).sum(dtype=i32)
+        counts = torch.clamp(n_uniq, max=u_cap)
 
-    ufinal = key2 >> rank_bits
-    rank2 = torch.where(valid2, key2 & ((1 << rank_bits) - 1),
-                        torch.zeros_like(key2))
-    # the run's deposition-last track has the largest rank (reference
-    # transporter.py:169,249 dict-overwrite semantics)
-    lab_idx = torch.clamp(row * k_tracks + rank2, 0, b - 1).reshape(-1).long()
-    v = valid2.reshape(-1)
-    labels = torch.where(v, track_labels[lab_idx],
-                         torch.full_like(lab_idx, -1, dtype=i32))
-    events_out = torch.where(valid2, row, torch.full_like(row, e)).reshape(-1)
-    pads_out = torch.where(valid2, ufinal // NUM_TB,
-                           torch.full_like(ufinal, -1)).reshape(-1)
-    tbs_int = torch.where(valid2, ufinal % NUM_TB,
-                          torch.zeros_like(ufinal)).reshape(-1)
-    charges = torch.where(valid2, sums * np.float32(mpgd_gain),
-                          torch.zeros_like(sums)).reshape(-1)
+        ufinal = key2 >> rank_bits
+        rank2 = torch.where(valid2, key2 & ((1 << rank_bits) - 1),
+                            torch.zeros_like(key2))
+        # the run's deposition-last track has the largest rank (reference
+        # transporter.py:169,249 dict-overwrite semantics)
+        lab_idx = torch.clamp(row * k_tracks + rank2, 0,
+                              b - 1).reshape(-1).long()
+        v = valid2.reshape(-1)
+        labels = torch.where(v, track_labels[lab_idx],
+                             torch.full_like(lab_idx, -1, dtype=i32))
+        events_out = torch.where(valid2, row,
+                                 torch.full_like(row, e)).reshape(-1)
+        pads_out = torch.where(valid2, ufinal // NUM_TB,
+                               torch.full_like(ufinal, -1)).reshape(-1)
+        tbs_int = torch.where(valid2, ufinal % NUM_TB,
+                              torch.zeros_like(ufinal)).reshape(-1)
+        charges = torch.where(valid2, sums * np.float32(mpgd_gain),
+                              torch.zeros_like(sums)).reshape(-1)
 
-    out = {
-        "pads": pads_out,
-        "tbs_i": tbs_int,
-        "charges": charges,
-        "labels": labels,
-        "events": events_out,
-        "cloud_valid": v,
-        "counts": counts,
-        "n_points": n_points,
-        "pool_overflow": pool_overflow,
-        "uniq_overflow": uniq_overflow,
-        "uniq_max": uniq_max,
-    }
-    if wiggle is not None:
-        # clamp below tb + 1 so floor(tbs) == tb survives f32 rounding
-        # (deposition.py:561-567)
-        tb_w = tbs_int.to(f32)
-        out["tbs"] = torch.minimum(
-            tb_w + wiggle.reshape(-1), torch.nextafter(tb_w + 1.0, tb_w)
-        )
+        out = {
+            "pads": pads_out,
+            "tbs_i": tbs_int,
+            "charges": charges,
+            "labels": labels,
+            "events": events_out,
+            "cloud_valid": v,
+            "counts": counts,
+            "n_points": n_points,
+            "pool_overflow": pool_overflow,
+            "uniq_overflow": uniq_overflow,
+            "uniq_max": uniq_max,
+        }
+        if wiggle is not None:
+            # clamp below tb + 1 so floor(tbs) == tb survives f32 rounding
+            # (deposition.py:561-567)
+            tb_w = tbs_int.to(f32)
+            out["tbs"] = torch.minimum(
+                tb_w + wiggle.reshape(-1), torch.nextafter(tb_w + 1.0, tb_w)
+            )
     return out
 
 

@@ -23,6 +23,7 @@ passes ``device="cpu"``, which runs the kernels' plain PyTorch versions.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import queue
@@ -39,7 +40,15 @@ import torch
 from .. import nuclear_map
 from ..constants import NUM_TB
 from ..kernels import require_device
-from ..utils.profiling import PhaseTimes, phase_timer
+from ..utils.profiling import (
+    PhaseTimes,
+    begin_run,
+    count,
+    end_run,
+    phase_timer,
+    profiling,
+    stage,
+)
 from .deposition import (
     LOOKUPS,
     MERGES,
@@ -284,28 +293,34 @@ class DetectorSimulator:
         dp = cfg.det_params
         e, k = n_events, self.k_tracks
         b = e * k
-        pos0 = vg[:, :3].repeat_interleave(k, dim=0)  # [B, 3] event-major
-        gv0 = vg[:, 3:].reshape(b, 3)
-        s_idx = torch.arange(k, dtype=torch.int32, device=vg.device).repeat(e)
         chunk = min(eng.chunk_steps, n_steps)
-        positions, dke, alive = integrate_tracks(
-            pos0, gv0, s_idx, self.species,
-            density=float(dp.gas_target.density), bfield=float(dp.bfield),
-            efield=float(dp.efield), dt=float(eng.dt), n_steps=n_steps,
-            chunk_steps=chunk,
-        )
-        # steps with any live track (the JAX run_simulation retunes its
-        # window from it; kept in meta_i32)
-        steps_alive = alive.any(dim=1).sum(dtype=torch.int32)
-        if noise is None:
-            noise = fano_noise(seed, event_start, e, k, n_steps, chunk,
-                               device=vg.device)
-        electrons = generate_electrons(
-            dke, noise.to(vg.device), dp.w_value, dp.fano_factor
-        )
-        u_cap = min(uniq_budget, point_budget * 100)
+        with stage("step.transport"):
+            pos0 = vg[:, :3].repeat_interleave(k, dim=0)  # [B, 3] event-major
+            gv0 = vg[:, 3:].reshape(b, 3)
+            s_idx = torch.arange(k, dtype=torch.int32,
+                                 device=vg.device).repeat(e)
+            track_labels = self._labels.repeat(e)
+            positions, dke, alive = integrate_tracks(
+                pos0, gv0, s_idx, self.species,
+                density=float(dp.gas_target.density), bfield=float(dp.bfield),
+                efield=float(dp.efield), dt=float(eng.dt), n_steps=n_steps,
+                chunk_steps=chunk,
+            )
+            # steps with any live track (the JAX run_simulation retunes its
+            # window from it; kept in meta_i32)
+            steps_alive = alive.any(dim=1).sum(dtype=torch.int32)
+        with stage("step.fano"):
+            if noise is None:
+                noise = fano_noise(seed, event_start, e, k, n_steps, chunk,
+                                   device=vg.device)
+            electrons = generate_electrons(
+                dke, noise.to(vg.device), dp.w_value, dp.fano_factor
+            )
+            u_cap = min(uniq_budget, point_budget * 100)
+            raw = (raw_wiggle(seed, event_start, e, u_cap, device=vg.device)
+                   if wiggle else None)
         cloud = deposit_and_merge(
-            positions, electrons, alive, self._labels.repeat(e),
+            positions, electrons, alive, track_labels,
             self.pad_table,
             grid_lo_mm=self._grid_lo_mm,
             grid_n_mm=self._grid_n_mm,
@@ -319,8 +334,7 @@ class DetectorSimulator:
             tracks_per_event=k,
             point_budget=point_budget,
             uniq_budget=uniq_budget,
-            wiggle=(raw_wiggle(seed, event_start, e, u_cap, device=vg.device)
-                    if wiggle else None),
+            wiggle=raw,
             merge=eng.merge,
             lookup=eng.lookup,
         )
@@ -546,28 +560,32 @@ class DetectorSimulator:
         """
         eng = self.engine
         e = len(vertices)
-        # initial gamma*beta = p / m (reference solver.py:273), f64 on host
-        p3 = momenta[:, self.sim_indices, :3]
-        gvs = (p3 / self.track_masses[None, :, None]).astype(np.float32)
-        vg = np.concatenate(
-            [np.asarray(vertices, dtype=np.float32), gvs.reshape(e, -1)],
-            axis=1,
-        )
-        vg_dev = torch.from_numpy(vg).to(self.device)
-        if noise is not None:
-            noise = torch.tensor(noise, dtype=torch.float32)
+        with stage("step.prepare"):
+            # initial gamma*beta = p / m (reference solver.py:273), f64 on
+            # host
+            p3 = momenta[:, self.sim_indices, :3]
+            gvs = (p3 / self.track_masses[None, :, None]).astype(np.float32)
+            vg = np.concatenate(
+                [np.asarray(vertices, dtype=np.float32), gvs.reshape(e, -1)],
+                axis=1,
+            )
+            vg_dev = torch.from_numpy(vg).to(self.device)
+            if noise is not None:
+                noise = torch.tensor(noise, dtype=torch.float32)
         cloud, steps_alive = self._core(
             vg_dev, e, point_budget or eng.point_budget,
             uniq_budget or eng.uniq_budget, n_steps or eng.n_time_steps,
             seed, event_start, noise, wiggle=compact,
         )
-        out = self._finish(cloud, steps_alive, out_budget or eng.out_budget,
-                           e)
-        if compact:
-            cc = compact_cloud(out, e, cloud_cap or eng.cloud_cap)
-            out["cloud_overflow"] = cc.pop("overflow")
-            out.update(cc)
+        with stage("step.convert"):
+            out = self._finish(cloud, steps_alive,
+                               out_budget or eng.out_budget, e)
+            if compact:
+                cc = compact_cloud(out, e, cloud_cap or eng.cloud_cap)
+                out["cloud_overflow"] = cc.pop("overflow")
+                out.update(cc)
         if assemble:
+            count("syncs", "assemble")
             total = int(out["spyral_counts"].sum())
             spyral, labels = self.assemble_device(
                 out["packed"][:total], out["spyral_counts"],
@@ -695,16 +713,20 @@ class _HostCopies:
     a copy and frees the buffer after it, unless the callback kept them.
     ``start`` runs on the main thread and ``finish`` and ``lend`` on the
     writer thread: the free list is taken and refilled under a lock. On
-    the CPU the rows are the tensor's own memory.
+    the CPU the rows are the tensor's own memory. ``times`` counts each
+    fresh page-locked buffer (``pinned_allocs``, ``pinned_bytes``) and
+    each wait for a copy (``syncs`` at ``copy-finish``).
     """
 
     ROWS_QUANTUM = 1 << 16
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device,
+                 times: PhaseTimes | None = None):
         self.cuda = device.type == "cuda"
         self.stream = torch.cuda.Stream(device) if self.cuda else None
         self.free: list[torch.Tensor] = []
         self.lock = threading.Lock()
+        self.times = times if times is not None else PhaseTimes()
 
     def take_free(self, rows: int,
                   like: torch.Tensor | None = None) -> torch.Tensor | None:
@@ -729,6 +751,8 @@ class _HostCopies:
             q = self.ROWS_QUANTUM
             buf = torch.empty((max(-(-rows // q), 1) * q, *src.shape[1:]),
                               dtype=src.dtype, pin_memory=True)
+            self.times.count("pinned_allocs")
+            self.times.count("pinned_bytes", n=buf.nbytes)
         ready = torch.cuda.Event()
         ready.record(torch.cuda.current_stream(src.device))
         self.stream.wait_event(ready)
@@ -743,6 +767,7 @@ class _HostCopies:
         if not self.cuda:
             return handle.numpy()
         buf, rows, done = handle
+        self.times.count("syncs", "copy-finish")
         done.synchronize()
         rows_np = buf[:rows].numpy().copy()
         with self.lock:
@@ -761,6 +786,7 @@ class _HostCopies:
             return
         arrays = []
         for buf, rows, done in handles:
+            self.times.count("syncs", "copy-finish")
             done.synchronize()
             arrays.append(buf[:rows].numpy())
         alive = [weakref.ref(a) for a in arrays]
@@ -799,7 +825,11 @@ def run_reader(
     can read arrays where no HDF5 reader exists), not an entry point.
     """
     times = PhaseTimes()
+    token = begin_run(times)
     wall_t0 = time.perf_counter()
+    # from the call to the first read: the simulator and its tables, the
+    # host copies and the writer thread
+    init = phase_timer(times, "init").__enter__()
     progress = None
     sim = None
     budgets: dict = {}
@@ -809,6 +839,7 @@ def run_reader(
     wthread = None
     try:
         device = require_device(device)
+        times.cuda = device if device.type == "cuda" else None
         engine = engine or EngineParams()
         sim = DetectorSimulator(config, reader.proton_numbers,
                                 reader.mass_numbers, indices=indices,
@@ -833,7 +864,7 @@ def run_reader(
         # and assembles them in its child; any other writer of
         # write_spyral_pool takes rows assembled on the device
         packed_writer = hasattr(writer, "write_packed")
-        copies = _HostCopies(device)
+        copies = _HostCopies(device, times)
         stats = {"events": 0, "rows": 0}
         budgets.update(
             point=engine.point_budget, uniq=engine.uniq_budget,
@@ -852,10 +883,14 @@ def run_reader(
             packed rows' copy for a writer of packed rows), or the pull of
             its compacted raw cloud. Returns (counts, copy handles, merged
             counts, raw cloud, statistics for the tuning)."""
-            with phase_timer(times, "pull-meta"):
+            with phase_timer(times, "pull-meta", start):
+                times.count("syncs", "pull-meta")
                 meta = out["meta_i32"].cpu().numpy()
-            cloud_overflow = (int(out["cloud_overflow"])
-                              if "cloud_overflow" in out else 0)
+            times.resolve()
+            cloud_overflow = 0
+            if "cloud_overflow" in out:
+                times.count("syncs", "cloud-overflow")
+                cloud_overflow = int(out["cloud_overflow"])
             kinds = overflow_kinds(meta, cur_steps, engine.n_time_steps,
                                    cloud_overflow)
             if kinds:
@@ -870,17 +905,17 @@ def run_reader(
                 total = int(counts.sum())
                 packed = out["packed"][:total]
                 if packed_writer:
-                    with phase_timer(times, "pull-start"):
+                    with phase_timer(times, "pull-start", start):
                         handle = copies.start(packed)
                     return counts, handle, merged_counts, None, tune_stats
-                with phase_timer(times, "assemble-device"):
+                with phase_timer(times, "assemble-device", start):
                     spyral, labels = sim.assemble_device(
                         packed, out["spyral_counts"],
                         torch.arange(start, start + n, device=device), seed)
-                with phase_timer(times, "pull-start"):
+                with phase_timer(times, "pull-start", start):
                     handle = (copies.start(spyral), copies.start(labels))
                 return counts, handle, merged_counts, None, tune_stats
-            with phase_timer(times, "pull-cloud"):
+            with phase_timer(times, "pull-cloud", start):
                 cl_counts = out["counts"][:n].cpu().numpy()
                 cl_total = int(cl_counts.sum())
                 raw = torch.stack(
@@ -897,18 +932,18 @@ def run_reader(
             events = np.arange(start, start + n)
             if cloud_np is None:
                 if packed_writer:
-                    with phase_timer(times, "pull-packed"):
+                    with phase_timer(times, "pull-packed", start):
                         packed = copies.finish(handle)
-                    with phase_timer(times, "ship-to-writer"):
+                    with phase_timer(times, "ship-to-writer", start):
                         writer.write_packed(packed, counts, events,
                                             raw_counts=raw_counts,
                                             wiggle_seed=seed)
                 else:
-                    t0 = time.perf_counter()
+                    pull = phase_timer(times, "pull-spyral", start).__enter__()
 
                     def write(spyral, labels):
-                        times.add("pull-spyral", time.perf_counter() - t0)
-                        with phase_timer(times, "h5py-write"):
+                        pull.__exit__()
+                        with phase_timer(times, "h5py-write", start):
                             writer.write_spyral_pool(spyral, labels, counts,
                                                      event_numbers=events,
                                                      raw_counts=raw_counts)
@@ -943,15 +978,19 @@ def run_reader(
 
         wthread = threading.Thread(target=writer_loop, name="spyral-writer")
         wthread.start()
+        init.__exit__()
+        init = None
         # the previous batch, whose rows are on their way to the host
         pending_dev = None
         for start in range(start_event, stop, eb):
-            with phase_timer(times, "read"):
+            with phase_timer(times, "read", start):
                 vertices, momenta = reader.read_range(start,
                                                       min(start + eb, stop))
+            if profiling():
+                times.count("batches")
             n = len(vertices)
             for _attempt in range(8):
-                with phase_timer(times, "dispatch"):
+                with phase_timer(times, "dispatch", start):
                     out = sim.simulate_batch(
                         vertices, momenta, seed=seed, event_start=start,
                         assemble=False, point_budget=budgets["point"],
@@ -968,6 +1007,7 @@ def run_reader(
                     break
                 except PoolOverflow as ov:
                     for kind in ov.kinds:
+                        times.count("retries", kind)
                         if kind == "steps":
                             budgets["steps"] = min(
                                 _round_up(budgets["steps"] * 4, chunk),
@@ -1009,8 +1049,13 @@ def run_reader(
                   file=sys.stderr)
         stats["budgets"] = dict(budgets)
         stats["phase_seconds"] = dict(times.seconds)
+        stats["counters"] = copy.deepcopy(times.counters)
+        stats["spans"] = times.span_summary()
         return stats
     finally:
+        if init is not None:
+            init.__exit__()
+        end_run(token)
         if wthread is not None and wthread.is_alive():
             wq.put(None)
             wthread.join()
@@ -1045,7 +1090,9 @@ def run_reader(
                 budgets=budgets,
                 phase_seconds=dict(times.seconds),
                 wall_seconds=time.perf_counter() - wall_t0,
-                extra={"events_per_batch": engine.events_per_batch},
+                extra={"events_per_batch": engine.events_per_batch,
+                       "counters": times.counters,
+                       "spans": times.span_summary()},
             )
 
 
@@ -1098,7 +1145,33 @@ def run_simulation(
     ``ATTPC_TPU_TIMING`` prints the budgets and phase times to stderr.
 
     Returns {"events": n, "rows": Spyral rows kept, "budgets": the final
-    budgets, "phase_seconds": wall seconds by phase}.
+    budgets, "phase_seconds": wall seconds by phase ("init": from the call
+    to the first read; then each batch's "read", "dispatch", "pull-meta",
+    "assemble-device" and "pull-start" on this thread, "pull-spyral" and
+    "h5py-write" on the writer thread), "counters", "spans"}. The run
+    manifest holds the counters and spans too.
+
+    "counters", always kept: "syncs", the host's waits on the device by
+    site ("transport.window": each physics window's live-track check;
+    "pull-meta": a batch's metadata; "cloud-overflow": the raw cloud's
+    pool overflow; "assemble": ``simulate_batch(assemble=True)``;
+    "copy-finish": the writer thread's wait for a batch's copy);
+    "pinned_allocs" and "pinned_bytes", the page-locked buffers allocated
+    for the copies to the host; "retries", the batches run again, by the
+    budget that overflowed; "batches", the batches read while a torch
+    profiler recorded.
+
+    "spans", while a torch profiler records (``utils.trace_to``; empty
+    without one): each span's host seconds, count and, for a step stage
+    on the card, the seconds the stream spent between the stage's two
+    CUDA events (else None), by name: the phases above, and the stages of
+    each "dispatch" (``DetectorSimulator.simulate_batch``): "step.prepare"
+    (the initial gamma*beta and its copy to the device), "step.transport",
+    "step.fano" (the Fano draws and the electrons), "step.deposit" (the
+    points' compaction and their pixel rows), "step.merge" (the merge of
+    equal (pad, tb) keys) and "step.convert" (threshold, z order and the
+    pooled rows). Each is also a ``record_function`` range of the trace;
+    ``utils.profiling.last_run()`` holds the last call's spans themselves.
     """
     from ..io.kinematics_file import KinematicsReader
 

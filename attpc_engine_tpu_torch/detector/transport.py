@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from ..constants import C, E_CHARGE, MEV_2_JOULE, MEV_2_KG
+from ..utils.profiling import count
 
 __all__ = [
     "TrackSpecies",
@@ -244,6 +245,7 @@ def integrate_tracks(
     alives = torch.zeros((n_steps, b), dtype=torch.bool, device=dev)
     for start in range(0, n_steps, chunk_steps):
         # one host sync per window, as the TPU while-loop's condition
+        count("syncs", "transport.window")
         if not bool(alive.any()):
             break
         stop = start + chunk_steps

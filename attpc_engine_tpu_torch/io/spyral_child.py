@@ -1,4 +1,4 @@
-# Copy of attpc_engine_tpu/io/spyral_child.py less its lines 21-26 (a reference path outside the repository), 277-285, 287-297, 343-347, 357-390 and 406-422 (the recycle path, which builds files in memory: the port carries no io/recycle.py).
+# Copy of attpc_engine_tpu/io/spyral_child.py less its lines 21-26 (a reference path outside the repository), 277-285, 287-297, 343-347, 357-390 and 406-422 (the recycle path, which builds files in memory: the port carries no io/recycle.py), and 286-286, 329-340, 392-393, 396-405, 559-561, 565-566, 588-591, 607-607, 609-610, 615-627, 672-673, 678-687, 697-698, 701-701, 724-724, 726-726 and 739-742 (a timing printout to stderr that nothing read).
 """Standalone Spyral HDF5 writer child process.
 
 Run as ``python .../spyral_child.py <tables.npz> <directory> <max_events>
@@ -269,7 +269,6 @@ class ChildWriter:
         # the compression path keeps h5py's filter pipeline
         self._native = native if not self.kwargs else None
         self._fast = not self.kwargs
-        self._mem = False
         if self._native is None:
             import h5py
 
@@ -301,18 +300,6 @@ class ChildWriter:
         self._opened = True
 
     def _open(self):
-        import time
-
-        t0 = time.perf_counter()
-        self._open_inner()
-        if os.environ.get("ATTPC_CHILD_TIMING") == "batch":
-            print(
-                f"[spyral-child] open run_{self.run_number:04d} "
-                f"{time.perf_counter() - t0:.3f}s mem={self._mem}",
-                file=sys.stderr,
-            )
-
-    def _open_inner(self):
         path = f"{self.directory}/run_{self.run_number:04d}.h5"
         self._path = path
         if self._native is not None:
@@ -325,20 +312,8 @@ class ChildWriter:
         self._gid = self.group.id
 
     def _finalize(self):
-        import time
-
         if not self._opened:  # striped shard that never received an event
             return
-        t0 = time.perf_counter()
-        self._finalize_inner()
-        if os.environ.get("ATTPC_CHILD_TIMING") == "batch":
-            print(
-                f"[spyral-child] finalize run_{self.run_number:04d} "
-                f"{time.perf_counter() - t0:.3f}s mem={self._mem}",
-                file=sys.stderr,
-            )
-
-    def _finalize_inner(self):
         if self._native is not None:
             rc = self._native.sio_h5_close(
                 self._fid, self.starting_event, self.last_event
@@ -475,14 +450,9 @@ class ChildWriter:
 
 
 def main() -> int:
-    import os
-    import time
-
     tables_path, directory, max_events, first_run, compression = sys.argv[1:6]
     run_stride = int(sys.argv[6]) if len(sys.argv) > 6 else 1
     owns_first = (sys.argv[7] != "0") if len(sys.argv) > 7 else True
-    if os.environ.get("ATTPC_CHILD_TIMING"):
-        print(f"[spyral-child] main() at {time.time():.3f}", file=sys.stderr)
     tune_malloc()  # keep big numpy/HDF5 buffers heap-warm (page-fault tax)
     tables = dict(np.load(tables_path))
     writer = ChildWriter(directory, int(max_events), int(first_run),
@@ -504,10 +474,6 @@ def main() -> int:
             float(tables["length"]),
         )
     out = sys.stdout
-    timing = os.environ.get("ATTPC_CHILD_TIMING")
-    t_wait = t_copy = t_work = 0.0
-    t_wig = t_asm = t_sw = 0.0
-    n_batches = 0
     # the parent reuses a pool of segments (a fresh one per batch costs
     # ~50 ms in first-touch page faults); keep attachments open by name
     segs: dict = {}
@@ -523,27 +489,11 @@ def main() -> int:
                 pass
         segs.clear()
 
-    t_mark = time.perf_counter()
     for line in sys.stdin:
-        t0 = time.perf_counter()
-        t_wait += t0 - t_mark
         msg = json.loads(line)
         if msg.get("close"):
             _close_segs()
             writer._finalize()
-            if timing:
-                import resource
-
-                ru = resource.getrusage(resource.RUSAGE_SELF)
-                print(
-                    f"[spyral-child] batches={n_batches} wait={t_wait:.2f}s "
-                    f"copy={t_copy:.2f}s work={t_work:.2f}s "
-                    f"(wiggle={t_wig:.2f} assemble={t_asm:.2f} "
-                    f"sort+write={t_sw:.2f}) "
-                    f"cpu={ru.ru_utime + ru.ru_stime:.2f}s "
-                    f"minflt={ru.ru_minflt}",
-                    file=sys.stderr,
-                )
             out.write("done\n")
             out.flush()
             return 0
@@ -588,22 +538,10 @@ def main() -> int:
                 spyral.ctypes.data_as(_DPTR),
                 labels.ctypes.data_as(_I64PTR),
             )
-            t1 = time.perf_counter()
-            t_asm += t1 - t0
             out.write(f"ok {msg['shm']}\n")
             out.flush()
             writer.write_batch_native(spyral, labels, counts, raw_counts,
                                       start)
-            t_mark = time.perf_counter()
-            t_sw += t_mark - t1
-            t_work += t_mark - t0
-            n_batches += 1
-            if timing == "batch":
-                print(
-                    f"[spyral-child] b{n_batches} rows={rows} "
-                    f"asm={t1 - t0:.3f}s write={t_mark - t1:.3f}s",
-                    file=sys.stderr,
-                )
             continue
         # ---- pure-Python fallback path ---------------------------------
         # copy out and ack IMMEDIATELY: the parent blocks on this ack
@@ -613,11 +551,8 @@ def main() -> int:
         packed = np.array(
             np.ndarray((rows, 2), dtype=np.int32, buffer=shm.buf)
         )
-        t1 = time.perf_counter()
-        t_copy += t1 - t0
         out.write(f"ok {msg['shm']}\n")
         out.flush()
-        ta = time.perf_counter()
         offsets = np.concatenate([[0], np.cumsum(counts)])
         q, tbi, pad, lab = split_packed(packed)
         # host-side TB wiggle (f64, per-event counter streams) + exact
@@ -640,9 +575,7 @@ def main() -> int:
                 tbf[lo:hi] = tbf[lo:hi][order]
                 pad[lo:hi] = pad[lo:hi][order]
                 lab[lo:hi] = lab[lo:hi][order]
-        tb_ = time.perf_counter(); t_wig += tb_ - ta
         spyral, labels = assemble(q, tbf, pad, lab, tables)
-        tc_ = time.perf_counter(); t_asm += tc_ - tb_
         for i, n in enumerate(counts):
             if n == 0:
                 # reference parity: raw-empty events are skipped, but events
@@ -655,10 +588,6 @@ def main() -> int:
                 continue
             lo, hi = int(offsets[i]), int(offsets[i + 1])
             writer.write_event(spyral[lo:hi], labels[lo:hi], start + i)
-        t_mark = time.perf_counter()
-        t_sw += t_mark - tc_
-        t_work += t_mark - t1
-        n_batches += 1
     # stdin closed without a close message (parent died): finalize anyway
     _close_segs()
     writer._finalize()

@@ -255,8 +255,9 @@ def _copy_cuts(header: str) -> set[int]:
 def test_writer_child_is_the_jax_child_less_its_cuts():
     """The port's writer child is the JAX package's, line for line, less
     its one-line header and the source lines the header lists; every cut
-    line is one of the recycle path's, or of the docstring paragraph that
-    names a path outside the repository."""
+    line is one of the recycle path's, of the docstring paragraph that
+    names a path outside the repository, or of the timing printout the
+    port leaves out."""
     src = (REPO / "attpc_engine_tpu" / "io" / "spyral_child.py").read_text()
     copy = (REPO / "attpc_engine_tpu_torch" / "io" / "spyral_child.py"
             ).read_text()
