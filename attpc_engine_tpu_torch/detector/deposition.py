@@ -17,14 +17,15 @@ reasoning behind each step):
    every pixel from the pad-id table. The default configuration
    (``merge="sorts"``, ``lookup="two_stage"``) does all of it in one kernel
    (``deposit_rows``: ``deposit_cuda.deposit_rows_cuda`` on the card),
-   which writes the int64 rows the first merge sort takes; the others
+   which writes the int64 rows the merge sort takes; the others
    build the mesh in PyTorch (``pixel_keys_charges``) and look the keys up
    with ``deposit_cuda.packed_key_lookup`` (K2, ``lookup="two_stage"``) or
    ``packed_key_lookup_rows`` (K6, ``"one_stage"``),
 4. the per-event merge of equal (pad, tb) keys (``_merge_runs``; with
-   ``merge="sorts"`` two row sorts through ``sort_cuda.sort_rows``, K3,
-   and a prefix sum; with ``"fused"`` ``merge_cuda.merge_runs_fused``, K5),
-   the last writer's label, and the overflow counters.
+   ``merge="sorts"`` a row sort through ``sort_cuda.sort_rows``, K3, and
+   the run-end compaction with its charge prefix, ``compact_runs``; with
+   ``"fused"`` ``merge_cuda.merge_runs_fused``, K5), the last writer's
+   label, and the overflow counters.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ import torch
 
 from ..kernels import require_device
 from ..utils.profiling import stage
+from .compact_cuda import compact_runs_cuda
 from .deposit_cuda import (
     deposit_rows_cuda,
     packed_key_lookup,
@@ -56,6 +58,8 @@ __all__ = [
     "deposit_and_merge",
     "deposit_rows",
     "deposit_rows_plain",
+    "compact_runs",
+    "compact_runs_plain",
     "pixel_keys_charges",
     "MESH_STEPS",
     "MESH_1D",
@@ -289,10 +293,20 @@ def _merge_runs(packed: torch.Tensor, qv: torch.Tensor, cap: int,
 
 def _merge_rows(rows: torch.Tensor, cap: int, rank_bits: int):
     """The sorts path of ``_merge_runs`` on rows already packed, int64
-    ``pack64(packed, qv)`` [E, W]: two row sorts (K3) around a prefix
-    associated as XLA's CPU cumsum. Returns as ``_merge_runs``."""
+    ``pack64(packed, qv)`` [E, W]: a row sort (K3), then the run-end
+    compaction (``compact_runs``). Returns as ``_merge_runs``."""
     cap = min(cap, rows.shape[1])
-    packed, qq = unpack64(sort_rows(rows))
+    return _run_sums(*compact_runs(sort_rows(rows), cap, rank_bits))
+
+
+def compact_runs_plain(sorted_rows: torch.Tensor, cap: int, rank_bits: int):
+    """Plain PyTorch version of the run-end compaction kernel. sorted_rows
+    [E, W] int64 ``pack64(key, charge)`` rows in ascending order, cap <= W.
+    Returns (key2 [E, cap] int32: the run ends' keys in row order, then
+    KEY_SENTINEL; c2 [E, cap] f32: the inclusive charge prefix (associated
+    as XLA's CPU cumsum) at each run end, then 0.0; n_uniq [E] int32, the
+    run ends before capping)."""
+    packed, qq = unpack64(sorted_rows)
     # the deposition-last writer of a run sorts last: rank rides in the
     # key's low bits
     last = _run_last(packed >> rank_bits)
@@ -308,7 +322,16 @@ def _merge_rows(rows: torch.Tensor, cap: int, rank_bits: int):
         torch.where(real_last, packed, torch.full_like(packed, KEY_SENTINEL)),
         torch.where(real_last, c, torch.zeros_like(c)),
     )))
-    return _run_sums(k2_full[:, :cap], c2_full[:, :cap], n_uniq)
+    return k2_full[:, :cap], c2_full[:, :cap], n_uniq
+
+
+def compact_runs(sorted_rows: torch.Tensor, cap: int, rank_bits: int):
+    """The run ends of sorted merge rows (arguments and result as
+    ``compact_runs_plain``): the kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if sorted_rows.is_cuda:
+        return compact_runs_cuda(sorted_rows, cap, rank_bits)
+    return compact_runs_plain(sorted_rows, cap, rank_bits)
 
 
 def _run_sums(key2: torch.Tensor, c2: torch.Tensor, n_uniq: torch.Tensor):
@@ -521,7 +544,7 @@ def deposit_and_merge(
         # --- diffusion mesh, pad lookup, pixel charges ------------------ #
         tbr = (ptbi << rank_bits) | prank
         phys = (grid_lo_mm, grid_n_mm, diffusion, efield, drift_velocity)
-        # one kernel writes the int64 rows the first merge sort takes
+        # one kernel writes the int64 rows the merge sort takes
         rows_kernel = merge == "sorts" and lookup == "two_stage"
         if rows_kernel:
             rows = deposit_rows(*(a.reshape(e, pb) for a in (

@@ -2,10 +2,12 @@
 
 K3 replaces the Pallas kernel ``attpc_engine_tpu/detector/sort_pallas.py``
 ``_sort_kernel`` (sort_pairs_pallas, and sort_i64_pallas through it) at all
-three call sites of the detector step: the two merge sorts of
+three call sites of the detector step: the merge sort of
 ``deposition.deposit_and_merge`` (rows of point_budget * 100 = 102,400 at
-the flagship), the first sort of K5 (``merge_cuda``) and the convert sort
-of ``DetectorSimulator._convert_to_spyral`` (rows of uniq_budget = 12,288).
+the flagship; the run-end compaction, ``compact_cuda``, takes the place of
+the TPU kernel's second merge sort), the first sort of K5 (``merge_cuda``)
+and the convert sort of ``DetectorSimulator._convert_to_spyral`` (rows of
+uniq_budget = 12,288).
 What bounds it on the card is bytes through device memory: each row read
 once and written once. It has two routes, chosen by ``route`` from the
 width alone before any launch:

@@ -16,11 +16,11 @@ for one build.
 The flags leave out ``--use_fast_math`` (IEEE ``logf``, ``sqrtf`` and
 division) and add ``-fmad=false``: the transport kernel must round like its
 plain PyTorch version, whose multiplies and adds are separate kernels, and
-the merge tails (``merge_fused.cu``, ``merge_cluster.cu``) add only, in the
-order of their plain version. The Spyral assembly (``assemble.cu``) rounds
-each f64 operation explicitly (``__dmul_rn``, ``__dadd_rn``, ``__ddiv_rn``)
-in the order of the C++ library it is held to. The
-deposit-rows kernel rounds each of its few f32 operations explicitly
+the merge tails (``merge_fused.cu``, ``merge_cluster.cu``,
+``compact_runs.cu``) add only, in the order of their plain version. The
+Spyral assembly (``assemble.cu``) rounds each f64 operation explicitly
+(``__dmul_rn``, ``__dadd_rn``, ``__ddiv_rn``) in the order of the C++
+library it is held to. The deposit-rows kernel rounds each of its few f32 operations explicitly
 (``__fmul_rn``, ``__fadd_rn``), so it would not contract without the flag
 either. The other kernels do integer work only.
 """
@@ -43,7 +43,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("transport.cu", "deposit.cu", "deposit_rows.cu", "sort_cluster.cu",
            "merge_rows.cu", "merge_fused.cu", "merge_cluster.cu",
-           "assemble.cu")
+           "compact_runs.cu", "assemble.cu")
 LIBRARY = "libattpc_kernels-{key}.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -175,6 +175,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.attpc_merge_cluster.argtypes = [vp] * 5 + [i32] * 7 + [vp]
     lib.attpc_merge_cluster_occupancy.argtypes = [
         i32, i32, ctypes.POINTER(i32)]
+    lib.attpc_compact_runs.argtypes = [vp] * 7 + [i32, i64, i32, i32, vp]
+    lib.attpc_compact_runs_prefix_stride.argtypes = [i32]
+    lib.attpc_compact_runs_prefix_stride.restype = i32
     f64 = ctypes.c_double
     lib.attpc_assemble_spyral.argtypes = (
         [vp, i64, vp, i32, vp, ctypes.c_uint64] + [vp] * 4 + [i32] + [vp] * 2
@@ -185,7 +188,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                lib.attpc_sort_rows_cluster_occupancy,
                lib.attpc_merge_rows_pass, lib.attpc_merge_tail,
                lib.attpc_merge_cluster, lib.attpc_merge_cluster_occupancy,
-               lib.attpc_assemble_spyral):
+               lib.attpc_compact_runs, lib.attpc_assemble_spyral):
         fn.restype = ctypes.c_int
     lib.attpc_error_string.argtypes = [i32]
     lib.attpc_error_string.restype = ctypes.c_char_p

@@ -8,8 +8,9 @@ the JAX package (the card's Python needs neither jax nor h5py for it):
 
 Bounds: K1 alive flags exact, positions within 1e-6 m, |dKE| within
 1e-4 MeV (tests/test_transport_pallas.py); K2 and K7 (one quad kernel), K3
-(both routes), K6 and the deposit-rows kernel bit-exact; K5 (both routes)
-key2 and n_uniq exact and c2 bit-exact; the Spyral assembly
+(both routes), K6, the deposit-rows kernel and the run-end compaction
+bit-exact; K5 (both routes) key2 and n_uniq exact and c2 bit-exact; the
+Spyral assembly
 (``csrc/assemble.cu``) bit-exact against its plain version and the C++
 library. A wrapper given a CUDA tensor it cannot take raises: nothing
 falls back.
@@ -33,6 +34,7 @@ from attpc_engine_tpu_torch.detector import (
 )
 from attpc_engine_tpu_torch.detector import (
     assemble_cuda,
+    compact_cuda,
     deposit_cuda,
     deposition,
     merge_cuda,
@@ -48,20 +50,20 @@ SMOKE = (Path(__file__).resolve().parents[1] / "attpc_engine_tpu_torch"
          / "data" / "smoke_kinematics.npz")
 
 
-def _load_assemble_cases():
-    """tests/assemble_cases.py by its path: the card's Python has a package
-    named ``tests`` of its own, which ``tests.assemble_cases`` would
-    find."""
+def _load_cases(name):
+    """tests/<name>.py by its path: the card's Python has a package named
+    ``tests`` of its own, which ``tests.<name>`` would find."""
     spec = importlib.util.spec_from_file_location(
-        "assemble_cases", Path(__file__).with_name("assemble_cases.py"))
+        name, Path(__file__).with_name(f"{name}.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
     return module
 
 
-_cases = _load_assemble_cases()
+_cases = _load_cases("assemble_cases")
 edge_events, forged_tie, pool = (_cases.edge_events, _cases.forged_tie,
                                  _cases.pool)
+merge_rows = _load_cases("merge_cases").merge_rows
 SENT = 2**31 - 1
 
 
@@ -332,6 +334,70 @@ def test_default_step_takes_the_rows_kernel(cuda_device):
         before = counts()
         sim.simulate_batch(vert[:8], mom[:8], seed=1, assemble=False)
         assert tuple(a - b for a, b in zip(counts(), before)) == expect
+
+
+def test_default_step_compacts_runs_in_one_kernel(cuda_device):
+    """The default step sorts its merge rows once with K3 and compacts the
+    run ends with one call of the compaction kernel, where the TPU path
+    sorts them a second time: K3 twice a step (the merge sort and the
+    convert sort), the compaction once. The fused step launches no
+    compaction (K5 merges) and K3 once, for the convert."""
+    def counts():
+        return compact_cuda.launches, sort_cuda.launches
+
+    for cfg, expect in (({}, (1, 2)),
+                        (dict(merge="fused", lookup="two_stage"), (0, 1))):
+        sim, vert, mom = _simulator(cuda_device, n_time_steps=1000,
+                                    events_per_batch=8, **cfg)
+        for start in (0, 8):
+            before = counts()
+            sim.simulate_batch(vert[start:start + 8], mom[start:start + 8],
+                               seed=1, event_start=start, assemble=False)
+            assert tuple(a - b for a, b in zip(counts(), before)) == expect
+
+
+def _same_bits(got, ref):
+    for g, r in zip(got, ref):
+        r = r.to(g.device)
+        assert g.dtype == r.dtype and g.shape == r.shape
+        if g.is_floating_point():
+            g, r = g.view(torch.int32), r.view(torch.int32)
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("w", [1, 16, 17, 4103, 12288, 192000, 213761,
+                               819200, 1638400])
+def test_compaction_kernel_matches_plain(cuda_device, w):
+    """The run-end compaction against its plain version, bit for bit in
+    key2, c2 and n_uniq, and ``_merge_rows`` on the card (K3 then the
+    kernel, one launch a call) against ``_merge_rows`` on the CPU in key2,
+    sums, valid2 and n_uniq: widths of one lane, one and two blocks of 16,
+    ragged tiles, c16dd's and the chain's merge rows and the chain's first
+    retry doubling; a row of dead lanes only, runs across every tile
+    boundary, caps below and above n_uniq, rank_bits 1 and 2."""
+    for rank_bits in (1, 2):
+        rows = merge_rows(w, rank_bits)
+        srt = torch.sort(rows, dim=1).values
+        rows_dev, srt_dev = rows.to(cuda_device), srt.to(cuda_device)
+        for cap in (max(1, w // 7), w):
+            got = deposition.compact_runs(srt_dev, cap, rank_bits)
+            ref = deposition.compact_runs_plain(srt, cap, rank_bits)
+            _same_bits(got, ref)
+            assert int(ref[2][1]) == 0 and int(ref[2][3]) > 0
+            if cap < w and w > 16:
+                assert int(ref[2].max()) > cap
+            before = compact_cuda.launches
+            got = deposition._merge_rows(rows_dev, cap, rank_bits)
+            assert compact_cuda.launches == before + 1
+            _same_bits(got, deposition._merge_rows(rows, cap, rank_bits))
+
+
+def test_compaction_kernel_rejects_what_it_cannot_take(cuda_device):
+    x = torch.zeros((3, 40), dtype=torch.int64, device=cuda_device)
+    for bad in ((x.int(), 4, 1), (x, 41, 1), (x, -1, 1), (x, 4, 31),
+                (x[:, ::2], 4, 1), (x[0], 4, 1)):
+        with pytest.raises(ValueError):
+            compact_cuda.compact_runs_cuda(*bad)
 
 
 def test_rows_and_pad_lookup_kernels_match_plain(cuda_device):

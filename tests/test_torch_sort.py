@@ -22,13 +22,16 @@ from attpc_engine_tpu.detector.sort_pallas import (
     sort_i64_pallas,
     sort_pairs_pallas,
 )
-from attpc_engine_tpu_torch.detector import sort_cuda
+from attpc_engine_tpu_torch.detector import compact_cuda, sort_cuda
 from attpc_engine_tpu_torch.detector.deposition import (
     KEY_SENTINEL,
+    _merge_rows,
     _merge_runs,
     _prefix_sum,
+    _run_sums,
 )
 from attpc_engine_tpu_torch.detector.sort_cuda import pack64, unpack64
+from tests.merge_cases import merge_rows
 
 
 def _pairs(e, w, seed, sentinel_share=0.3):
@@ -123,6 +126,118 @@ def test_prefix_sum_associates_as_jax_cumsum(w):
                                                   dtype=jnp.float32))(x))
     np.testing.assert_array_equal(_prefix_sum(torch.from_numpy(x)).numpy(),
                                   ref)
+
+
+def _left_to_right(x):
+    """Inclusive prefix along the last axis, one addition after another,
+    as each thread of the compaction kernel sums its 16 values."""
+    out = x.clone()
+    for j in range(1, x.shape[-1]):
+        out[..., j] = out[..., j - 1] + x[..., j]
+    return out
+
+
+def _compact_decomposed(sorted_rows, cap, rank_bits):
+    """The run-end compaction kernel (csrc/compact_runs.cu) as it
+    decomposes the work, in PyTorch: the row cut into tiles of TILE lanes
+    (dead lanes past the end), the totals kernel's level-1 block totals,
+    segment totals and run-end counts a tile; the carry kernel's slot scan
+    and its prefix of the segment totals through the upper levels; the
+    write kernel's carry for each level-1 block and its slots. Returns the
+    kernel's outputs and the prefix at every lane of the row."""
+    e, w = sorted_rows.shape
+    blk = 16
+    tiles = -(-w // compact_cuda.TILE)
+    lanes = tiles * compact_cuda.TILE
+    rows = torch.nn.functional.pad(sorted_rows, (0, lanes - w),
+                                   value=KEY_SENTINEL << 32)
+    key, q = unpack64(rows)
+    i = torch.arange(lanes)
+    nxt = torch.cat([key[:, 1:], torch.full((e, 1), KEY_SENTINEL,
+                                            dtype=torch.int32)], dim=1)
+    last = (i < w) & (key != KEY_SENTINEL) & (
+        (i + 1 == w) | ((key >> rank_bits) != (nxt >> rank_bits)))
+
+    # totals kernel
+    inner0 = _left_to_right(q.reshape(e, -1, blk))  # [E, blocks, 16]
+    t1 = inner0[..., -1]
+    t2 = _left_to_right(t1.reshape(e, -1, blk))[..., -1]  # [E, segments]
+    tile_ends = last.reshape(e, tiles, -1).sum(dim=2)
+
+    # carry kernel: slots, then the segment prefix level by level
+    first = torch.cumsum(tile_ends, dim=1) - tile_ends
+    n_uniq = tile_ends.sum(dim=1).to(torch.int32)
+    n_seg = -(-w // compact_cuda.SEGMENT)
+    a, inners = t2[:, :n_seg], []
+    while a.shape[1] > blk:
+        m = a.shape[1]
+        inner = _left_to_right(torch.nn.functional.pad(
+            a, (0, (-m) % blk)).reshape(e, -1, blk))
+        inners.append(inner.reshape(e, -1)[:, :m])
+        a = inner[..., -1]
+    pre = _left_to_right(a)
+    for inner in reversed(inners):
+        b = torch.arange(inner.shape[1]) // blk
+        pre = inner + torch.where(b == 0, 0.0,
+                                  pre[:, torch.clamp(b - 1, min=0)])
+
+    # write kernel: the carry of each level-1 block b1
+    b1 = torch.arange(lanes // blk)
+    p = b1 % blk
+    seg = b1 // blk
+    in_seg = torch.cat([torch.zeros(e, t1.shape[1] // blk, 1),
+                        _left_to_right(t1.reshape(e, -1, blk))[..., :-1]],
+                       dim=2).reshape(e, -1)
+    prev_t2 = torch.cat([torch.zeros(e, 1), t2[:, :-1]], dim=1)
+    s = torch.where(p > 0, seg, seg - 1)
+    inner = torch.where(p > 0, in_seg, prev_t2[:, seg])
+    if w > compact_cuda.SEGMENT:
+        pre_all = torch.nn.functional.pad(pre, (0, t2.shape[1] - n_seg))
+        inner = inner + torch.where(s <= 0, 0.0,
+                                    pre_all[:, torch.clamp(s - 1, min=0)])
+    carry = torch.where(b1 == 0, 0.0, inner)
+    c = (inner0 + carry[..., None] if w > blk else inner0).reshape(e, -1)
+
+    slot = first.repeat_interleave(compact_cuda.TILE, dim=1) + (
+        torch.cumsum(last.reshape(e, tiles, -1), dim=2)
+        - last.reshape(e, tiles, -1).to(torch.int64)).reshape(e, -1)
+    put = last & (slot < cap)
+    dest = torch.where(put, torch.arange(e)[:, None] * cap + slot, e * cap)
+    key2 = torch.full((e * cap + 1,), KEY_SENTINEL, dtype=torch.int32)
+    c2 = torch.zeros(e * cap + 1)
+    key2[dest.reshape(-1)] = key.reshape(-1)
+    c2[dest.reshape(-1)] = c.reshape(-1)
+    return (key2[:-1].reshape(e, cap), c2[:-1].reshape(e, cap), n_uniq,
+            c[:, :w])
+
+
+@pytest.mark.parametrize("w", [1, 16, 17, 4103, 12288, 192000, 213761,
+                               819200, 1638400])
+def test_compaction_decomposition_is_the_sorts_path(w):
+    """The compaction kernel's tiles, tile totals, upper-level carries and
+    slot scan give ``_prefix_sum``'s prefix and the plain ``_merge_rows``
+    bit for bit: widths of one lane, one and two blocks of 16, ragged
+    tiles, c16dd's and the chain's merge rows and the chain's first retry
+    doubling; a row of dead lanes only, runs across tile boundaries, caps
+    below and above n_uniq, rank_bits 1 and 2."""
+    for rank_bits in (1, 2):
+        rows = merge_rows(w, rank_bits)
+        srt = torch.sort(rows, dim=1).values
+        for cap in (max(1, w // 7), w):
+            key2, c2, n_uniq, c = _compact_decomposed(srt, cap, rank_bits)
+            assert torch.equal(c.view(torch.int32),
+                               _prefix_sum(unpack64(srt)[1]).view(torch.int32))
+            got = _run_sums(key2, c2, n_uniq)
+            ref = _merge_rows(rows, cap, rank_bits)
+            for g, r in zip(got, ref):
+                assert g.dtype == r.dtype and torch.equal(
+                    g.view(torch.int32) if g.is_floating_point() else g,
+                    r.view(torch.int32) if r.is_floating_point() else r)
+            assert torch.equal(c2.view(torch.int32), torch.where(
+                key2 != KEY_SENTINEL, c2, 0.0).view(torch.int32))
+            assert int(n_uniq[1]) == 0 and int(n_uniq[3]) > 0
+            if cap < w and w > 16:
+                assert int(n_uniq.max()) > cap
 
 
 @pytest.mark.parametrize("w,name,n_cta", [

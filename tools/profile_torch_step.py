@@ -107,7 +107,8 @@ STAGES = {
     (simulator, "integrate_tracks"): "transport",
     (simulator, "fano_noise"): "fano_noise",
     (deposition, "_prefix_sum"): "prefix_sum",
-    (deposition, "sort_rows"): "merge_sorts",
+    (deposition, "sort_rows"): "merge_sort",
+    (deposition, "compact_runs"): "compact_runs",
     (deposition, "merge_runs_fused"): "merge_fused",
     (deposition, "deposit_rows"): "deposit_rows",
     (simulator, "deposit_and_merge"): "deposit_and_merge",
@@ -491,7 +492,7 @@ def main() -> int:
           f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}; steps_alive "
           f"{int(meta[-2])}")
     print("device span by stage (ms; deposit_and_merge holds deposit_rows, "
-          "merge_sorts, prefix_sum and merge_fused):")
+          "merge_sort, compact_runs, prefix_sum and merge_fused):")
     for e in events:
         if (e.key in STAGES.values()
                 and e.device_type == torch.autograd.DeviceType.CUDA):
