@@ -1,6 +1,6 @@
 """K3 (``csrc/sort_cluster.cu``, and ``csrc/merge_rows.cu`` on its wide
 route) against its byte bound, in percent: each lane of each row the
-traced steps handed it (two merge sorts and the convert sort a step, at
+traced steps handed it (the merge sort and the convert sort a step, at
 the budgets of each step) read once and written once, over 3.35 TB/s,
 divided by the device time of its kernels in the trace."""
 

@@ -1,7 +1,8 @@
 """Peaks of the card and the bytes each kernel must move, for the
 roofline shares. The byte counts are copies of ``chip_smoke.py``'s
-(``rows_bytes``) and of the K3 count its timing uses: each lane of each row
-handed to the sort read once and written once, 8 B each."""
+(``rows_bytes``), of the K3 count its timing uses (each lane of each row
+handed to the sort read once and written once, 8 B each) and of the
+run-end compaction's (the sorted rows read once, the cap slots written)."""
 
 from __future__ import annotations
 
@@ -30,8 +31,23 @@ def sort_bytes(e: int, w: int) -> int:
 
 
 def dispatch_sort_bytes(e: int, point_budget: int, uniq_budget: int) -> int:
-    """K3's bytes in one default detector step of E events: the two merge
-    sorts of [E, point_budget * 100] and the convert sort of [E, min(uniq,
+    """K3's bytes in one default detector step of E events: the merge sort
+    of [E, point_budget * 100] and the convert sort of [E, min(uniq,
     point_budget * 100)]."""
     w = point_budget * MESH_PIXELS
-    return 2 * sort_bytes(e, w) + sort_bytes(e, min(uniq_budget, w))
+    return sort_bytes(e, w) + sort_bytes(e, min(uniq_budget, w))
+
+
+def compact_bytes(e: int, w: int, cap: int) -> int:
+    """The run-end compaction (``csrc/compact_runs.cu``) on sorted int64
+    rows [E, W]: each lane read once (8 B), and the cap slots of its int32
+    keys and f32 charge prefixes written (8 B a slot)."""
+    return 8 * e * w + 8 * e * cap
+
+
+def dispatch_compact_bytes(e: int, point_budget: int, uniq_budget: int) -> int:
+    """The compaction's bytes in one default detector step of E events:
+    the merge rows [E, point_budget * 100] into min(uniq, point_budget *
+    100) slots an event."""
+    w = point_budget * MESH_PIXELS
+    return compact_bytes(e, w, min(uniq_budget, w))

@@ -1,16 +1,19 @@
 """One run of a cell: set-up, the measured window, the traced window's
 per-layer metrics, and the comparison with the reference.
 
-Set-up (``setup_s``, from the process's start to the window's start):
-torch, the CUDA context, the port's kernel library (built by nvcc on the
-first run in a checkout), the window's kinematics and one warm-up run of
-``run_reader`` over the window's first ``warmup_batches`` batches (the
-probe and the tuned shapes). The window is one ``run_reader`` call over
-``n`` events, a fixed amount of work (the cell's ``window_events_per_s``
-times ``--seconds``, in whole batches), probe batch and all, from the call
-to its return with the writer closed. The kinematics come from the
-configuration's own seed where it names one, else from ``--seed``; the
-detector's draws and the compared sample always from ``--seed``.
+Set-up (``setup_s``, from the process's start to the window's start), in
+the phases of ``SETUP_PHASES``: the imports and the CUDA context; the
+detector's ``Config`` and its tables; the window's kinematics; one warm-up
+run of ``run_reader`` over the window's first ``warmup_batches`` batches
+(the probe and the tuned shapes), inside which the port loads its kernel
+library on its first launch (built by nvcc on the first run in a
+checkout), and the window's sink made ready. The window is one
+``run_reader`` call over ``n`` events, a fixed amount of work (the cell's
+``window_events_per_s`` times ``--seconds``, in whole batches), probe batch
+and all, from the call to its return with the writer closed. The
+kinematics come from the configuration's own seed where it names one, else
+from ``--seed``; the detector's draws and the compared sample always from
+``--seed``.
 """
 
 from __future__ import annotations
@@ -35,6 +38,9 @@ MAIN_PHASES = ("read", "dispatch", "pull-meta", "assemble-device",
 WRITER_PHASES = ("pull-spyral", "h5py-write")
 TRACE_SKIP = 2  # the probe batch and the first tuned one
 TRACE_BATCHES = 24
+# set-up's phases, each from the end of the one before (the first from the
+# process's start, the last to the window's start)
+SETUP_PHASES = ("imports", "config", "kinematics", "warmup")
 
 
 def forbidden_modules() -> list[str]:
@@ -95,6 +101,16 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def kernel_library_s() -> float | None:
+    """Seconds the port spent finding or building its kernel library
+    (``kernels.build_seconds``), inside the warm-up; None where it has not
+    loaded one."""
+    from attpc_engine_tpu_torch import kernels
+
+    built = kernels.build_seconds()
+    return None if built is None else built["seconds"]
+
+
 def drive(config, engine, events: Events, n: int, sink, seed: int, device,
           on_read=None) -> tuple[dict, float, float]:
     """``run_reader`` over events [0, n) into ``sink``: (its statistics,
@@ -149,10 +165,14 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     cell = cells.find(cell_name, root, here)
     cfg, traffic = cell.config, cell.traffic
     eb = int(cfg["engine"]["events_per_batch"])
+    sync(device)  # makes the CUDA context, a part of "imports"
+    marks = [time.perf_counter()]
     config, engine = port_config(cfg), port_engine(cfg)
+    marks.append(time.perf_counter())
 
     n = max(1, round(cell.window_events_per_s * seconds / eb)) * eb
     events = Events(cfg, n, cfg["kinematics"].get("seed", seed), device)
+    marks.append(time.perf_counter())
     n_warm = min(cell.warmup_batches * eb, n)
     drive(config, engine, events, n_warm, Sink(traffic, n_warm, []), seed,
           device)
@@ -169,6 +189,9 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
     else:
         stats, wall, t0 = drive(config, engine, events, n, sink, seed, device)
     setup_s = t0 - t_start
+    bounds = [t_start, *marks, t0]
+    setup = {p: b - a for p, a, b in zip(SETUP_PHASES, bounds, bounds[1:])}
+    setup["kernel_library"] = kernel_library_s()  # inside "warmup"
     cuda = torch.device(device).type == "cuda"
     peak = torch.cuda.max_memory_allocated() if cuda else 0
     batches = math.ceil(n / eb)
@@ -205,6 +228,7 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
         phases["read"] = phases.get("read", 0.0) - tracer.own_s
         view = SimpleNamespace(
             phase_seconds=phases, batches=batches, trace=traced,
+            setup_seconds=setup,
             main_phases=MAIN_PHASES, writer_phases=WRITER_PHASES,
             kernel_names=cells.load_json(here / "kernel_names.json"),
             roofline=roofline)
@@ -228,7 +252,8 @@ def run(cell_name: str, seed: int, seconds: float, trace: bool,
         result["device"]["window_s"] = traced.window_s()
         result["breakdown"] = traced.breakdown()
     result["driver"] = {"phase_seconds": stats["phase_seconds"],
-                        "budgets": stats["budgets"], "batches": batches}
+                        "budgets": stats["budgets"], "batches": batches,
+                        "setup_seconds": setup}
     result["compared"] = {"events": len(ref),
                           "rows": int(sum(len(r[0]) for r in ref.values())),
                           "reference_s": ref_s, "window_s": wall,

@@ -35,6 +35,9 @@ def test_a_cell_added_as_new_files_and_entries(checkout):
     """A new configuration, traffic mix, cell and metric: files and
     BENCHMARK.json entries only, nothing that is there edited."""
     here = checkout / "port_bench"
+    before = {w["name"]: cells.find(w["name"], checkout, here)
+              for w in cells.load_json(checkout / "BENCHMARK.json")[
+                  "workloads"]}
     cfg = json.loads((here / "configs" / "c16dd_d2_184MeV.json").read_text())
     cfg["name"] = "c16dd_longer"
     cfg["kinematics"]["beam_energy"] = 200.0
@@ -74,7 +77,11 @@ def test_a_cell_added_as_new_files_and_entries(checkout):
 
     assert read(Run()) == pytest.approx(50.0)
     # the cells that were there keep their metrics and files
-    assert len(cells.find("c16dd.keep", checkout, here).per_layer) == 6
+    for name, cell in before.items():
+        assert cells.find(name, checkout, here) == cell
+        own = [m for m in bench["per_layer"]
+               if name in m.get("workloads", [name])]
+        assert cell.per_layer == own and len(own) > 0
 
 
 def test_an_unknown_cell_is_refused(checkout):

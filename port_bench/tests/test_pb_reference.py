@@ -26,7 +26,8 @@ def run_cpu(checkout, cell="c16dd.discard", seed=2147483901):
     return result
 
 
-@pytest.mark.parametrize("cell", ["c16dd.discard", "chain.discard"])
+@pytest.mark.parametrize("cell", ["c16dd.discard", "chain.discard",
+                                  "c16dd.keep"])
 def test_reference_agrees_with_the_port_to_the_bit(checkout, cell):
     result = run_cpu(checkout, cell)
     assert result["correct"]
@@ -40,6 +41,13 @@ def test_reference_agrees_with_the_port_to_the_bit(checkout, cell):
         assert compared[name] == 0, name
     assert set(result["metrics"]) == {"events_per_s", "setup_s"}
     assert list(result)[-1] == "checks"
+    # set-up's phases follow one another from the process's start to the
+    # window's
+    setup = result["driver"]["setup_seconds"]
+    assert list(setup) == [*runner.SETUP_PHASES, "kernel_library"]
+    assert all(setup[p] >= 0 for p in runner.SETUP_PHASES)
+    assert sum(setup[p] for p in runner.SETUP_PHASES) == pytest.approx(
+        result["metrics"]["setup_s"]["value"])
 
 
 def test_the_control_fails(checkout):
