@@ -11,7 +11,8 @@ rows of the Spyral HDF5 files. ``run_simulation`` streams the batches of a
 kinematics file through it into a writer, with the JAX driver's
 step-window and budget auto-tuning, one batch's copy to the host in flight
 behind the next batch's step and the copy-out and writes on a background
-thread; ``simulate`` runs one event. All run on the card unless the caller
+thread, each batch sharded over every card torch finds (one host thread a
+card); ``simulate`` runs one event. All run on the card unless the caller
 passes ``device="cpu"``, which runs the kernels' plain PyTorch versions.
 
     integrate_tracks (transport.py)       [E*K] tracks, RK4 windows
@@ -23,6 +24,7 @@ passes ``device="cpu"``, which runs the kernels' plain PyTorch versions.
 
 from __future__ import annotations
 
+import contextvars
 import copy
 import dataclasses
 import os
@@ -37,14 +39,17 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .. import nuclear_map
+from .. import kernels, nuclear_map
 from ..constants import NUM_TB
-from ..kernels import require_device
+from ..kernels import require_device, require_devices
 from ..utils.profiling import (
     PhaseTimes,
     begin_run,
+    card_turns,
     count,
+    device_wait,
     end_run,
+    on_card,
     phase_timer,
     profiling,
     stage,
@@ -716,6 +721,10 @@ class _HostCopies:
     the CPU the rows are the tensor's own memory. ``times`` counts each
     fresh page-locked buffer (``pinned_allocs``, ``pinned_bytes``) and
     each wait for a copy (``syncs`` at ``copy-finish``).
+
+    ``start_many`` copies the rows of several cards, end to end, into one
+    buffer, each card's on a side stream of its own, and its handle waits
+    for each card's copy (``syncs`` at the site given for it).
     """
 
     ROWS_QUANTUM = 1 << 16
@@ -723,7 +732,12 @@ class _HostCopies:
     def __init__(self, device: torch.device,
                  times: PhaseTimes | None = None):
         self.cuda = device.type == "cuda"
-        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        # the side stream of each card: ``device``'s made here, another
+        # card's on the first copy from it
+        self.streams = {}
+        if self.cuda:
+            side = torch.cuda.Stream(device)
+            self.streams[side.device] = side
         self.free: list[torch.Tensor] = []
         self.lock = threading.Lock()
         self.times = times if times is not None else PhaseTimes()
@@ -742,33 +756,68 @@ class _HostCopies:
                     return self.free.pop(i)
         return None
 
+    def _buffer(self, rows: int, like: torch.Tensor) -> torch.Tensor:
+        """A free page-locked buffer of at least ``rows`` rows of
+        ``like``'s type and row shape, or a new one."""
+        buf = self.take_free(rows, like=like)
+        if buf is None:
+            q = self.ROWS_QUANTUM
+            buf = torch.empty((max(-(-rows // q), 1) * q, *like.shape[1:]),
+                              dtype=like.dtype, pin_memory=True)
+            self.times.count("pinned_allocs")
+            self.times.count("pinned_bytes", n=buf.nbytes)
+        return buf
+
+    def _copy(self, buf: torch.Tensor, at: int, src: torch.Tensor):
+        """Copy ``src`` into ``buf[at:]`` on its card's side stream, after
+        the work queued on its card's current stream; the copy's event."""
+        side = self.streams.get(src.device)
+        if side is None:
+            side = self.streams[src.device] = torch.cuda.Stream(src.device)
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(src.device))
+        side.wait_event(ready)
+        with torch.cuda.stream(side):
+            buf[at:at + src.shape[0]].copy_(src, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(side)
+        src.record_stream(side)
+        return done
+
     def start(self, src: torch.Tensor):
         if not self.cuda:
             return src
         rows = src.shape[0]
-        buf = self.take_free(rows, like=src)
-        if buf is None:
-            q = self.ROWS_QUANTUM
-            buf = torch.empty((max(-(-rows // q), 1) * q, *src.shape[1:]),
-                              dtype=src.dtype, pin_memory=True)
-            self.times.count("pinned_allocs")
-            self.times.count("pinned_bytes", n=buf.nbytes)
-        ready = torch.cuda.Event()
-        ready.record(torch.cuda.current_stream(src.device))
-        self.stream.wait_event(ready)
-        with torch.cuda.stream(self.stream):
-            buf[:rows].copy_(src, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(self.stream)
-        src.record_stream(self.stream)
-        return buf, rows, done
+        buf = self._buffer(rows, src)
+        return buf, rows, self._copy(buf, 0, src)
+
+    def start_many(self, srcs: list, sites: list):
+        """One handle for the rows of ``srcs`` (one tensor a card, of one
+        type and row shape) end to end; waiting for it counts a ``syncs``
+        at ``sites[k]`` for card k's copy."""
+        if not self.cuda:
+            return torch.cat(srcs)
+        rows = sum(src.shape[0] for src in srcs)
+        buf = self._buffer(rows, srcs[0])
+        waits, at = [], 0
+        for src, site in zip(srcs, sites):
+            waits.append((site, self._copy(buf, at, src)))
+            at += src.shape[0]
+        return buf, rows, waits
+
+    def _wait(self, done) -> None:
+        """Wait for a handle's copy, or for each card's (``start_many``),
+        counting each wait."""
+        for site, event in (done if isinstance(done, list)
+                            else [("copy-finish", done)]):
+            self.times.count("syncs", site)
+            event.synchronize()
 
     def finish(self, handle) -> np.ndarray:
         if not self.cuda:
             return handle.numpy()
         buf, rows, done = handle
-        self.times.count("syncs", "copy-finish")
-        done.synchronize()
+        self._wait(done)
         rows_np = buf[:rows].numpy().copy()
         with self.lock:
             self.free.append(buf)
@@ -786,8 +835,7 @@ class _HostCopies:
             return
         arrays = []
         for buf, rows, done in handles:
-            self.times.count("syncs", "copy-finish")
-            done.synchronize()
+            self._wait(done)
             arrays.append(buf[:rows].numpy())
         alive = [weakref.ref(a) for a in arrays]
         use(*arrays)
@@ -802,6 +850,70 @@ def _round_up(k, q: int) -> int:
     return max(((int(k) + q - 1) // q) * q, q)
 
 
+class _Cards:
+    """One host thread a device of a run over several ("card-<k>"), each
+    under a copy of the caller's context marked as its card's
+    (``profiling.on_card``), so that the run's recorder finds it, and on
+    its card as the thread's current CUDA device. ``submit`` hands card k
+    a call; ``collect`` waits for the calls handed to the first ``n``
+    cards and returns their results in card order, or raises the first
+    exception once every card has answered. The threads run their calls
+    in turns, holding ``baton``, which a thread gives up while it waits on
+    its card (``profiling.device_wait``): a sync on one card holds up that
+    card's thread only."""
+
+    def __init__(self, devices: list):
+        self.jobs = [queue.SimpleQueue() for _ in devices]
+        self.results = [queue.SimpleQueue() for _ in devices]
+        self.baton = threading.Lock()
+        self.threads = []
+        for k, dev in enumerate(devices):
+            ctx = contextvars.copy_context()
+            t = threading.Thread(target=ctx.run, args=(self._loop, k, dev),
+                                 name=f"card-{k}", daemon=True)
+            t.start()
+            self.threads.append(t)
+
+    def _loop(self, k: int, dev: torch.device) -> None:
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        on_card(f"card-{k}", dev, self.baton)
+        while True:
+            job = self.jobs[k].get()
+            if job is None:
+                return
+            fn, args = job
+            try:
+                with self.baton:
+                    answer = (True, fn(*args))
+            except BaseException as exc:  # raised on the caller's thread
+                answer = (False, exc)
+            self.results[k].put(answer)
+
+    def submit(self, k: int, fn, *args) -> None:
+        self.jobs[k].put((fn, args))
+
+    def collect(self, n: int) -> list:
+        answers = [self.results[k].get() for k in range(n)]
+        for ok, value in answers:
+            if not ok:
+                raise value
+        return [value for _, value in answers]
+
+    def close(self) -> None:
+        for q in self.jobs:
+            q.put(None)
+        for t in self.threads:
+            t.join()
+
+
+def _shards(n: int, n_devices: int) -> list[tuple[int, int]]:
+    """A batch's events [0, n) cut into contiguous shards of
+    ceil(n / n_devices) events, one a device (a short batch uses fewer)."""
+    size = -(-n // n_devices)
+    return [(lo, min(lo + size, n)) for lo in range(0, n, size)]
+
+
 def run_reader(
     config: Config,
     reader,
@@ -813,7 +925,7 @@ def run_reader(
     start_event: int = 0,
     stop_event: int | None = None,
     auto_tune: bool = True,
-    device: torch.device | str = "cuda",
+    device: torch.device | str | list = "cuda",
     input_name: str | None = None,
 ) -> dict:
     """The batch loop of ``run_simulation`` over an open kinematics
@@ -827,23 +939,27 @@ def run_reader(
     times = PhaseTimes()
     token = begin_run(times)
     wall_t0 = time.perf_counter()
-    # from the call to the first read: the simulator and its tables, the
-    # host copies and the writer thread
+    # from the call to the first read: the simulators and their tables, the
+    # host copies, the card threads and the writer thread
     init = phase_timer(times, "init").__enter__()
     progress = None
-    sim = None
+    sims: list = []
+    devices: list = []
     budgets: dict = {}
     stop = None
     wq: queue.Queue = queue.Queue(maxsize=2)
     werr: list[BaseException] = []
     wthread = None
+    cards = None
     try:
-        device = require_device(device)
-        times.cuda = device if device.type == "cuda" else None
+        devices = require_devices(device)
+        if len(devices) == 1:
+            # one device: the step's stages are timed on its stream
+            times.cuda = devices[0] if devices[0].type == "cuda" else None
         engine = engine or EngineParams()
-        sim = DetectorSimulator(config, reader.proton_numbers,
-                                reader.mass_numbers, indices=indices,
-                                engine=engine, device=device)
+        sims = [DetectorSimulator(config, reader.proton_numbers,
+                                  reader.mass_numbers, indices=indices,
+                                  engine=engine, device=d) for d in devices]
         if seed is None:
             seed = int(np.random.SeedSequence().entropy % (2**31))
         stop = (reader.n_events if stop_event is None
@@ -864,7 +980,7 @@ def run_reader(
         # and assembles them in its child; any other writer of
         # write_spyral_pool takes rows assembled on the device
         packed_writer = hasattr(writer, "write_packed")
-        copies = _HostCopies(device, times)
+        copies = _HostCopies(devices[0], times)
         stats = {"events": 0, "rows": 0}
         budgets.update(
             point=engine.point_budget, uniq=engine.uniq_budget,
@@ -876,21 +992,25 @@ def run_reader(
         )
         tuned = not auto_tune
 
-        def pull_batch(out, n: int, cur_steps: int, start: int):
-            """The batch's metadata (a sync, before the next dispatch), its
-            overflows raised as PoolOverflow, then its Spyral assembly on
-            the device and the start of the assembled rows' copy (the
-            packed rows' copy for a writer of packed rows), or the pull of
-            its compacted raw cloud. Returns (counts, copy handles, merged
-            counts, raw cloud, statistics for the tuning)."""
-            with phase_timer(times, "pull-meta", start):
+        def pull_batch(sim, out, n: int, cur_steps: int, start: int,
+                       batch: int):
+            """The metadata of events [start, start + n) (a sync, before
+            the next dispatch), its overflows raised as PoolOverflow, then
+            its Spyral assembly on the device, or the pull of its
+            compacted raw cloud. Returns (counts, the device rows to copy
+            to the host: (packed,) for a writer of packed rows, else
+            (spyral, labels), merged counts, raw cloud, statistics for the
+            tuning)."""
+            with phase_timer(times, "pull-meta", batch):
                 times.count("syncs", "pull-meta")
-                meta = out["meta_i32"].cpu().numpy()
+                with device_wait():
+                    meta = out["meta_i32"].cpu().numpy()
             times.resolve()
             cloud_overflow = 0
             if "cloud_overflow" in out:
                 times.count("syncs", "cloud-overflow")
-                cloud_overflow = int(out["cloud_overflow"])
+                with device_wait():
+                    cloud_overflow = int(out["cloud_overflow"])
             kinds = overflow_kinds(meta, cur_steps, engine.n_time_steps,
                                    cloud_overflow)
             if kinds:
@@ -905,17 +1025,14 @@ def run_reader(
                 total = int(counts.sum())
                 packed = out["packed"][:total]
                 if packed_writer:
-                    with phase_timer(times, "pull-start", start):
-                        handle = copies.start(packed)
-                    return counts, handle, merged_counts, None, tune_stats
-                with phase_timer(times, "assemble-device", start):
-                    spyral, labels = sim.assemble_device(
+                    return counts, (packed,), merged_counts, None, tune_stats
+                with phase_timer(times, "assemble-device", batch):
+                    rows = sim.assemble_device(
                         packed, out["spyral_counts"],
-                        torch.arange(start, start + n, device=device), seed)
-                with phase_timer(times, "pull-start", start):
-                    handle = (copies.start(spyral), copies.start(labels))
-                return counts, handle, merged_counts, None, tune_stats
-            with phase_timer(times, "pull-cloud", start):
+                        torch.arange(start, start + n, device=sim.device),
+                        seed)
+                return counts, rows, merged_counts, None, tune_stats
+            with phase_timer(times, "pull-cloud", batch), device_wait():
                 cl_counts = out["counts"][:n].cpu().numpy()
                 cl_total = int(cl_counts.sum())
                 raw = torch.stack(
@@ -925,6 +1042,94 @@ def run_reader(
                 labels_all = out["labels"][:cl_total].long().cpu().numpy()
             return counts, None, None, (raw, labels_all, cl_counts), tune_stats
 
+        def step(sim, vertices, momenta, start: int, batch: int,
+                 shard_budgets: dict, dispatch: str, after_dispatch=None):
+            """Events [start, start + n) of batch ``batch`` dispatched on
+            ``sim``'s device and pulled (``pull_batch``), again while a
+            budget overflows, with every overflowing budget of
+            ``shard_budgets`` doubled (the window climbed), at most 8
+            times; ``after_dispatch`` runs once, after the first
+            dispatch."""
+            for _attempt in range(8):
+                with phase_timer(times, dispatch, batch):
+                    out = sim.simulate_batch(
+                        vertices, momenta, seed=seed, event_start=start,
+                        assemble=False,
+                        point_budget=shard_budgets["point"],
+                        uniq_budget=shard_budgets["uniq"],
+                        out_budget=shard_budgets["out"],
+                        n_steps=shard_budgets["steps"],
+                        compact=raw_writer,
+                        cloud_cap=shard_budgets["cloud"],
+                    )
+                if after_dispatch is not None:
+                    after_dispatch()
+                    after_dispatch = None
+                try:
+                    return pull_batch(sim, out, len(vertices),
+                                      shard_budgets["steps"], start, batch)
+                except PoolOverflow as ov:
+                    for kind in ov.kinds:
+                        times.count("retries", kind)
+                        if kind == "steps":
+                            shard_budgets["steps"] = min(
+                                _round_up(shard_budgets["steps"] * 4, chunk),
+                                engine.n_time_steps)
+                        else:
+                            shard_budgets[kind] *= 2
+                            if shard_budgets[kind] > 2**21:
+                                raise
+            raise RuntimeError("pool budgets failed to converge")
+
+        def shard_step(k: int, vertices, momenta, start: int, batch: int,
+                       shard_budgets: dict):
+            """Card k's shard of batch ``batch``, on card k's thread: a
+            ``shard.step`` span timed on card k's stream around the shard's
+            ``shard.dispatch`` and its pull, and under a profiler its turns
+            (``shard.turn``). Returns ``step``'s result and the shard's
+            budgets."""
+            with phase_timer(times, "shard.step", batch, device_time=True), \
+                    card_turns(times, batch):
+                times.count("shard.events", f"card-{k}", len(vertices))
+                pulled = step(sims[k], vertices, momenta, start, batch,
+                              shard_budgets, "shard.dispatch")
+            return pulled, shard_budgets
+
+        def submit_shards(vertices, momenta, batch: int) -> int:
+            """Hand each card its shard of batch ``batch``, with its own
+            copy of the budgets; the number of shards."""
+            cuts = _shards(len(vertices), len(devices))
+            for k, (lo, hi) in enumerate(cuts):
+                cards.submit(k, shard_step, k, vertices[lo:hi],
+                             momenta[lo:hi], batch + lo, batch, dict(budgets))
+            return len(cuts)
+
+        def collect_shards(batch: int, n_shards: int):
+            """The shards' results of batch ``batch``, joined in event
+            order, with the copies of their rows started; the run's budgets
+            grow to the largest any shard reached. Returns (counts, copy
+            handles, merged counts, raw cloud, statistics for the
+            tuning)."""
+            answers = cards.collect(n_shards)
+            for _, shard_budgets in answers:
+                for key, value in shard_budgets.items():
+                    budgets[key] = max(budgets[key], value)
+            parts = [pulled for pulled, _ in answers]
+            counts = np.concatenate([p[0] for p in parts])
+            stat = [p[4] for p in parts]
+            tune_stats = (max(s[0] for s in stat), max(s[1] for s in stat),
+                          sum(s[2] for s in stat), max(s[3] for s in stat))
+            if raw_writer:
+                cloud = tuple(np.concatenate([p[3][i] for p in parts])
+                              for i in range(3))
+                return counts, None, None, cloud, tune_stats
+            sites = [f"copy-finish.card-{k}" for k in range(n_shards)]
+            with phase_timer(times, "pull-start", batch):
+                handle = tuple(copies.start_many(list(rows), sites)
+                               for rows in zip(*(p[1] for p in parts)))
+            merged = np.concatenate([p[2] for p in parts])
+            return counts, handle, merged, None, tune_stats
+
         def write_out(pending) -> None:
             """Finish one batch's copy to the host and write it, on the
             writer thread."""
@@ -933,7 +1138,7 @@ def run_reader(
             if cloud_np is None:
                 if packed_writer:
                     with phase_timer(times, "pull-packed", start):
-                        packed = copies.finish(handle)
+                        packed = copies.finish(handle[0])
                     with phase_timer(times, "ship-to-writer", start):
                         writer.write_packed(packed, counts, events,
                                             raw_counts=raw_counts,
@@ -976,53 +1181,35 @@ def run_reader(
                 raise werr[0]
             wq.put(pending)
 
+        if len(devices) > 1:
+            if devices[0].type == "cuda":
+                kernels.library()  # built or loaded once, before the threads
+            cards = _Cards(devices)
         wthread = threading.Thread(target=writer_loop, name="spyral-writer")
         wthread.start()
         init.__exit__()
         init = None
         # the previous batch, whose rows are on their way to the host
         pending_dev = None
-        for start in range(start_event, stop, eb):
-            with phase_timer(times, "read", start):
-                vertices, momenta = reader.read_range(start,
-                                                      min(start + eb, stop))
-            if profiling():
-                times.count("batches")
-            n = len(vertices)
-            for _attempt in range(8):
-                with phase_timer(times, "dispatch", start):
-                    out = sim.simulate_batch(
-                        vertices, momenta, seed=seed, event_start=start,
-                        assemble=False, point_budget=budgets["point"],
-                        uniq_budget=budgets["uniq"],
-                        out_budget=budgets["out"], n_steps=budgets["steps"],
-                        compact=raw_writer, cloud_cap=budgets["cloud"],
-                    )
-                if pending_dev is not None:
-                    enqueue_write(pending_dev)
-                    pending_dev = None
-                try:
-                    counts, handle, merged, cloud_np, tune_stats = pull_batch(
-                        out, n, budgets["steps"], start)
-                    break
-                except PoolOverflow as ov:
-                    for kind in ov.kinds:
-                        times.count("retries", kind)
-                        if kind == "steps":
-                            budgets["steps"] = min(
-                                _round_up(budgets["steps"] * 4, chunk),
-                                engine.n_time_steps)
-                        else:
-                            budgets[kind] *= 2
-                            if budgets[kind] > 2**21:
-                                raise
-            else:
-                raise RuntimeError("pool budgets failed to converge")
-            del out
+
+        def flush() -> None:
+            nonlocal pending_dev
+            if pending_dev is not None:
+                enqueue_write(pending_dev)
+                pending_dev = None
+
+        def finish(start: int, n: int, counts, handle, merged, cloud_np,
+                   tune_stats) -> None:
+            """A batch's rows on their way to the writer, its counts, and
+            after the first batch the budgets retightened to its
+            multiplicities."""
+            nonlocal pending_dev, tuned
             if cloud_np is not None:
                 enqueue_write((counts, None, None, cloud_np, start, n))
-            else:
+            elif cards is None:
                 pending_dev = (counts, handle, merged, None, start, n)
+            else:
+                enqueue_write((counts, handle, merged, None, start, n))
             stats["events"] += n
             stats["rows"] += int(counts.sum())
             if not tuned:
@@ -1037,13 +1224,34 @@ def run_reader(
                 budgets["steps"] = min(_round_up(steps_alive * 1.3, chunk),
                                        engine.n_time_steps)
                 tuned = True
-        if pending_dev is not None:
-            enqueue_write(pending_dev)
-            pending_dev = None
+
+        for start in range(start_event, stop, eb):
+            with phase_timer(times, "read", start):
+                vertices, momenta = reader.read_range(start,
+                                                      min(start + eb, stop))
+            if profiling():
+                times.count("batches")
+            n = len(vertices)
+            if cards is None:
+                counts, rows, merged, cloud_np, tune_stats = step(
+                    sims[0], vertices, momenta, start, start, budgets,
+                    "dispatch", flush)
+                handle = None
+                if rows is not None:
+                    with phase_timer(times, "pull-start", start):
+                        handle = tuple(copies.start(r) for r in rows)
+                del rows
+                finish(start, n, counts, handle, merged, cloud_np,
+                       tune_stats)
+                continue
+            n_shards = submit_shards(vertices, momenta, start)
+            finish(start, n, *collect_shards(start, n_shards))
+        flush()
         wq.put(None)
         wthread.join()
         if werr:
             raise werr[0]
+        times.resolve(wait=True)
         if os.environ.get("ATTPC_TPU_TIMING"):
             print(f"[run_simulation] budgets={budgets}\n{times.summary()}",
                   file=sys.stderr)
@@ -1056,6 +1264,8 @@ def run_reader(
         if init is not None:
             init.__exit__()
         end_run(token)
+        if cards is not None:
+            cards.close()
         if wthread is not None and wthread.is_alive():
             wq.put(None)
             wthread.join()
@@ -1065,7 +1275,7 @@ def run_reader(
             reader.close()
             if progress is not None:
                 progress.close()
-        if sim is not None and hasattr(writer, "get_directory_name"):
+        if sims and hasattr(writer, "get_directory_name"):
             from ..utils.manifest import write_run_manifest
 
             dp, ep = config.det_params, config.elec_params
@@ -1074,7 +1284,7 @@ def run_reader(
                 stage="detector",
                 seed=seed,
                 event_range=(start_event, stop),
-                device=device,
+                device=devices,
                 config={
                     "input": input_name,
                     "length_m": dp.length,
@@ -1085,7 +1295,7 @@ def run_reader(
                     "fano_factor": dp.fano_factor,
                     "w_value": dp.w_value,
                     "adc_threshold": ep.adc_threshold,
-                    "sim_indices": sim.sim_indices,
+                    "sim_indices": sims[0].sim_indices,
                 },
                 budgets=budgets,
                 phase_seconds=dict(times.seconds),
@@ -1107,15 +1317,23 @@ def run_simulation(
     start_event: int = 0,
     stop_event: int | None = None,
     auto_tune: bool = True,
-    device: torch.device | str = "cuda",
+    device: torch.device | str | list = "cuda",
 ) -> dict:
     """Run the detector simulation over a kinematics file into ``writer``
-    (simulator.py:1051-1479, less its device mesh).
+    (simulator.py:1051-1479; its device mesh as threads, one a card).
 
     Batches of ``engine.events_per_batch`` events are read with
-    ``KinematicsReader`` and simulated on ``device``: the card by default,
-    the plain PyTorch versions with ``device="cpu"``; a CUDA device where
-    torch finds none raises before any work.
+    ``KinematicsReader`` and simulated on ``device``: by default
+    (``"cuda"``) on every CUDA card torch finds, on one card with an
+    index (``"cuda:1"``), the plain PyTorch versions with ``device="cpu"``,
+    or on each device of a list; a CUDA device where torch finds none
+    raises before any work. Over several devices each batch is cut into
+    contiguous shards of ceil(events / devices) events, one a device (a
+    short batch uses fewer), each dispatched on its device by a host
+    thread of its own ("card-<k>") with its global event ids, so that a
+    sync on one card holds up no other; the writer gets each batch's rows
+    whole and in event order, as from one device. The rows do not depend
+    on the layout: every draw is keyed by (seed, global event id).
 
     With ``auto_tune`` the first batch runs one chunk of ``chunk_steps``
     steps (a window that the "steps" overflow climbs x4, up to
@@ -1123,7 +1341,11 @@ def run_simulation(
     budgets are retightened to 1.3x the first batch's multiplicities
     (rounded up to chunk_steps, 64, 1024 and 1024). A batch that overflows
     a budget runs again with every overflowing budget doubled (the window
-    climbed), at most 8 times. Every draw depends only on the event's
+    climbed), at most 8 times; over several devices only the shard that
+    overflowed runs again, the run's budgets, shared by the shards, grow
+    to the largest a shard reached before the next batch is handed out,
+    and the probe's retightening takes the largest multiplicities of the
+    shards. Every draw depends only on the event's
     global id, so a retry or a tuned window reproduces the same physics,
     and a run resumed with the same seed at ``start_event`` reproduces the
     events it would have produced, for any ``events_per_batch``.
@@ -1155,11 +1377,14 @@ def run_simulation(
     site ("transport.window": each physics window's live-track check;
     "pull-meta": a batch's metadata; "cloud-overflow": the raw cloud's
     pool overflow; "assemble": ``simulate_batch(assemble=True)``;
-    "copy-finish": the writer thread's wait for a batch's copy);
+    "copy-finish": the writer thread's wait for a batch's copy; over
+    several devices each site carries the card's name,
+    "pull-meta.card-1", "copy-finish.card-1");
     "pinned_allocs" and "pinned_bytes", the page-locked buffers allocated
     for the copies to the host; "retries", the batches run again, by the
     budget that overflowed; "batches", the batches read while a torch
-    profiler recorded.
+    profiler recorded; over several devices "shard.events", the events
+    each card ran, by card ("card-0", ...).
 
     "spans", while a torch profiler records (``utils.trace_to``; empty
     without one): each span's host seconds, count and, for a step stage
@@ -1172,11 +1397,22 @@ def run_simulation(
     equal (pad, tb) keys) and "step.convert" (threshold, z order and the
     pooled rows). Each is also a ``record_function`` range of the trace;
     ``utils.profiling.last_run()`` holds the last call's spans themselves.
+    Over several devices each card's thread (its span's ``thread``,
+    "card-<k>") has, for each batch, in place of "dispatch": a
+    "shard.step" span, timed on the card's stream from before the shard's
+    dispatch to after its assembly, around "shard.dispatch" (the shard's
+    ``simulate_batch``, with the stages inside it timed on the card's
+    stream), "pull-meta" and "assemble-device", and its "shard.turn"
+    spans, one for each stretch of the thread's host work between its
+    waits on the card and for its turn (``utils.profiling``), timed on the
+    card's stream from the turn's start to the end of the work launched in
+    it; "pull-start" (the copies of every card's rows into one page-locked
+    buffer) stays on this thread.
     """
     from ..io.kinematics_file import KinematicsReader
 
     try:
-        require_device(device)
+        require_devices(device)
         reader = KinematicsReader(input_path)
     except BaseException:
         writer.close()

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..constants import C, E_CHARGE, MEV_2_JOULE, MEV_2_KG
-from ..utils.profiling import count
+from ..utils.profiling import count, device_wait
 
 __all__ = [
     "TrackSpecies",
@@ -246,7 +246,9 @@ def integrate_tracks(
     for start in range(0, n_steps, chunk_steps):
         # one host sync per window, as the TPU while-loop's condition
         count("syncs", "transport.window")
-        if not bool(alive.any()):
+        with device_wait():
+            done = not bool(alive.any())
+        if done:
             break
         stop = start + chunk_steps
         rk4_window(pos, gv, alive, s_idx, mass, q_m, species.dedx,

@@ -243,3 +243,22 @@ def require_device(device: torch.device | str) -> torch.device:
             f"device {str(device)!r}: torch finds no CUDA device; pass "
             "device='cpu' to run the plain PyTorch versions on the CPU")
     return dev
+
+
+def require_devices(device) -> list[torch.device]:
+    """The devices a driver run spreads each batch over: every CUDA card
+    torch finds for a CUDA device without an index (``"cuda"``), one
+    device for a device with an index (``"cuda:1"``) or the CPU, and each
+    device of a list or tuple, all of one type. Raises as
+    ``require_device`` does."""
+    if isinstance(device, (list, tuple)):
+        devices = [require_device(d) for d in device]
+        if not devices or len({d.type for d in devices}) != 1:
+            raise ValueError(f"devices {device!r}: give one or more "
+                             "devices, all of one type")
+        return devices
+    dev = require_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]

@@ -60,25 +60,29 @@ def _nvidia_smi_card() -> str | None:
     return lines[0] if lines else None
 
 
-def device_record(device: torch.device | str) -> dict:
+def device_record(device) -> dict:
     """The device fields of a run record: platform ("gpu" or "cpu"), the
-    card's name, the nvidia-smi card line (name and power limit) and the
-    number of cards, for a CUDA device; torch's and CUDA's versions."""
-    dev = torch.device(device)
+    card's name, the nvidia-smi card line (name and power limit), the
+    devices the run used and their number; torch's and CUDA's versions.
+    ``device`` is the device the run ran on, or the list of them."""
+    devices = ([torch.device(d) for d in device]
+               if isinstance(device, (list, tuple)) else [torch.device(device)])
+    dev = devices[0]
     record = {
         "platform": "gpu" if dev.type == "cuda" else dev.type,
         "torch_version": torch.__version__,
         "cuda_version": torch.version.cuda,
+        "devices": [str(d) for d in devices],
+        "n_devices": len(devices),
     }
     if dev.type == "cuda":
         index = dev.index if dev.index is not None else torch.cuda.current_device()
         record.update(
             kind=torch.cuda.get_device_name(index),
-            n_devices=torch.cuda.device_count(),
             nvidia_smi=_nvidia_smi_card(),
         )
     else:
-        record.update(kind="cpu", n_devices=1, nvidia_smi=None)
+        record.update(kind="cpu", nvidia_smi=None)
     return record
 
 
@@ -88,7 +92,7 @@ def write_run_manifest(
     stage: str,
     seed: int,
     event_range: tuple[int, int],
-    device: torch.device | str,
+    device: torch.device | str | list,
     config: dict | None = None,
     budgets: dict | None = None,
     phase_seconds: dict | None = None,
@@ -96,9 +100,9 @@ def write_run_manifest(
     extra: dict | None = None,
 ) -> Path | None:
     """Write a run-record JSON next to ``target``, the run's output file or
-    directory; ``device`` is the device the run ran on. Returns the
-    manifest path, or None if the record could not be written (a record
-    never fails a run: an OSError is swallowed)."""
+    directory; ``device`` is the device the run ran on, or the list of
+    them. Returns the manifest path, or None if the record could not be
+    written (a record never fails a run: an OSError is swallowed)."""
     from .. import __version__
 
     target = Path(target)

@@ -21,8 +21,25 @@ One recorder, ``PhaseTimes``, for each ``run_reader`` call:
   profiler records.
 
 torch's profiler records the ranges of the thread that started it only: a
-span of another thread (``run_reader``'s writer thread) is kept here, on
-the same clock, but enters no range.
+span of another thread (``run_reader``'s writer thread, its card threads)
+is kept here, on the same clock, but enters no range.
+
+A run over several devices drives each from a thread of its own, under a
+copy of the caller's context marked with its card (``on_card``): there a
+step stage's CUDA events go on that card's current stream, and the
+``syncs`` counter's sites carry the card's name (``pull-meta.card-1``).
+The card threads take turns at the host's work, holding the run's
+``baton`` (a lock) except inside a ``device_wait`` block, where a thread
+waits on its card and another card's thread dispatches: threads that all
+launch small operations at once would otherwise hand the interpreter's
+lock to one another at every operation, which costs far more than the
+operations. Under a profiler, inside a ``card_turns`` block, each stretch
+of a card thread's host work between its waits (a turn, from taking the
+baton to giving it up) is a ``shard.turn`` span with a CUDA event pair on
+the card's stream: its host time leaves out the waits on the card and for
+the baton, and its time on the card runs from the turn's start to the end
+of the work launched in it, which leaves out the card's idle time while
+its thread waits for a turn.
 """
 
 from __future__ import annotations
@@ -42,6 +59,10 @@ import torch.autograd.profiler as _autograd_profiler
 # the recorder of the run on this thread's context, for the step's stages
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar(
     "attpc_recorder", default=None)
+# the card this thread's context drives (``_Card``), in a run over several
+# devices; None in a run over one
+_CARD: contextvars.ContextVar = contextvars.ContextVar(
+    "attpc_card", default=None)
 _LAST: list = [None]
 _OFF = nullcontext()
 
@@ -60,8 +81,8 @@ def _new_counters() -> dict:
 class Span:
     """A recorded span: Unix nanoseconds on the profiler's clock, the span
     it ran inside (None at the top of its thread), its batch's first event
-    id, and, for a step stage on the card, the stream's seconds between its
-    two CUDA events (None until read)."""
+    id, and, for a step stage or a turn on the card, the stream's seconds
+    between its two CUDA events (None until read)."""
 
     name: str
     start_ns: int
@@ -97,15 +118,20 @@ class PhaseTimes:
 
     def count(self, name: str, site: str | None = None, n: int = 1) -> None:
         """Add ``n`` to counter ``name`` (at ``site``, for the counters kept
-        by site), and to its traced twin while a profiler records."""
+        by site), and to its traced twin while a profiler records. On a
+        card's thread a ``syncs`` site carries the card's name."""
         sides = (self.counters, self.traced) if profiling() else (
             self.counters,)
+        card = _CARD.get()
+        if card is not None and name == "syncs":
+            site = f"{site}.{card.name}"
         with self._lock:
             for c in sides:
                 if site is None:
                     c[name] += n
                 else:
-                    c[name][site] = c[name].get(site, 0) + n
+                    by_site = c.setdefault(name, {})
+                    by_site[site] = by_site.get(site, 0) + n
 
     def summary(self) -> str:
         total = sum(self.seconds.values())
@@ -129,14 +155,19 @@ class PhaseTimes:
                 d["device_s"] = (d["device_s"] or 0.0) + s.device_s
         return out
 
-    def resolve(self) -> None:
-        """Read the CUDA event pairs of the stages that have ended; call
-        after a sync of the stream that covers them."""
+    def resolve(self, wait: bool = False) -> None:
+        """Read the CUDA event pairs of the stages that have ended: call
+        after a sync of the stream that covers them (pairs on another card
+        that has not reached them stay pending), or with ``wait``, which
+        waits for every pair."""
         if not self._pending:
             return
         with self._lock:
-            pending, self._pending = self._pending, []
-        for span, e0, e1 in pending:
+            pending, ended, self._pending = self._pending, [], []
+            for p in pending:
+                (ended if wait or p[2].query() else self._pending).append(p)
+        for span, e0, e1 in ended:
+            e1.synchronize()
             span.device_s = e0.elapsed_time(e1) * 1e-3
 
     def _stack(self) -> list:
@@ -159,18 +190,21 @@ class PhaseTimes:
             rf.__enter__()
         span = Span(name, (a + time.time_ns()) // 2, 0, parent, batch,
                     threading.current_thread().name)
-        e0 = None
-        if stage and self.cuda is not None:
-            e0 = torch.cuda.Event(enable_timing=True)
-            e0.record(torch.cuda.current_stream(self.cuda))
+        e0 = dev = None
+        if stage:
+            card = _CARD.get()
+            dev = self.cuda if card is None else card.device
+            if dev is not None and dev.type == "cuda":
+                e0 = torch.cuda.Event(enable_timing=True)
+                e0.record(torch.cuda.current_stream(dev))
         stack.append(span)
-        return span, rf, e0
+        return span, rf, e0, dev
 
     def _exit(self, opened) -> None:
-        span, rf, e0 = opened
+        span, rf, e0, dev = opened
         if e0 is not None:
             e1 = torch.cuda.Event(enable_timing=True)
-            e1.record(torch.cuda.current_stream(self.cuda))
+            e1.record(torch.cuda.current_stream(dev))
             with self._lock:
                 self._pending.append((span, e0, e1))
         c = time.time_ns()
@@ -181,18 +215,60 @@ class PhaseTimes:
         with self._lock:
             self.spans.append(span)
 
+    def _turn_begin(self, card: _Card) -> None:
+        """Open a ``shard.turn`` span of ``card``'s batch on this thread."""
+        e0 = None
+        if card.device.type == "cuda":
+            e0 = torch.cuda.Event(enable_timing=True)
+            e0.record(torch.cuda.current_stream(card.device))
+        stack = self._stack()
+        card.turn = (Span("shard.turn", time.time_ns(), 0,
+                          stack[-1] if stack else None, card.batch,
+                          threading.current_thread().name), e0)
+
+    def _turn_end(self, card: _Card) -> None:
+        """Close ``card``'s open turn."""
+        (span, e0), card.turn = card.turn, None
+        span.end_ns = time.time_ns()
+        e1 = None
+        if e0 is not None:
+            e1 = torch.cuda.Event(enable_timing=True)
+            e1.record(torch.cuda.current_stream(card.device))
+        with self._lock:
+            if e1 is not None:
+                self._pending.append((span, e0, e1))
+            self.spans.append(span)
+
+
+@dataclass(eq=False)
+class _Card:
+    """The card a thread drives in a run over several devices: its name
+    ("card-<k>"), its device, the baton the card threads take turns at
+    and, inside a ``card_turns`` block, the recorder and batch of its
+    turns and the open turn (its span and CUDA start event)."""
+
+    name: str
+    device: torch.device
+    baton: threading.Lock | None
+    recorder: PhaseTimes | None = None
+    batch: int | None = None
+    turn: tuple | None = None
+
 
 class _Phase:
     """``phase_timer``'s block."""
 
-    __slots__ = ("times", "name", "batch", "t0", "opened")
+    __slots__ = ("times", "name", "batch", "device_time", "t0", "opened")
 
-    def __init__(self, times: PhaseTimes, name: str, batch: int | None):
+    def __init__(self, times: PhaseTimes, name: str, batch: int | None,
+                 device_time: bool = False):
         self.times, self.name, self.batch = times, name, batch
+        self.device_time = device_time
 
     def __enter__(self):
         self.t0 = time.perf_counter()
-        self.opened = (self.times._enter(self.name, self.batch, False)
+        self.opened = (self.times._enter(self.name, self.batch,
+                                         self.device_time)
                        if profiling() else None)
         return self
 
@@ -220,11 +296,13 @@ class _Stage:
         return False
 
 
-def phase_timer(times: PhaseTimes, name: str, batch: int | None = None):
+def phase_timer(times: PhaseTimes, name: str, batch: int | None = None,
+                device_time: bool = False):
     """Accumulate the wall time of a block into ``times`` under ``name``;
     under a profiler the block is also a span of batch ``batch`` (None:
-    its parent's)."""
-    return _Phase(times, name, batch)
+    its parent's), with ``device_time`` timed on the card as a step stage
+    is."""
+    return _Phase(times, name, batch, device_time)
 
 
 def stage(name: str):
@@ -252,6 +330,81 @@ def begin_run(times: PhaseTimes) -> contextvars.Token:
     ``last_run`` returns."""
     _LAST[0] = times
     return _CURRENT.set(times)
+
+
+def on_card(name: str, device: torch.device,
+            baton: threading.Lock | None = None) -> None:
+    """Mark this thread's context as the one that drives card ``name`` on
+    ``device``, in a run over several devices whose card threads take
+    turns at ``baton`` (see the module's docstring)."""
+    _CARD.set(_Card(name, device, baton))
+
+
+class _Wait:
+    """``device_wait``'s block on a card thread: the baton is given up
+    for the block, and the card's open turn ends before it and a new one
+    begins after it."""
+
+    __slots__ = ("card",)
+
+    def __init__(self, card: _Card):
+        self.card = card
+
+    def __enter__(self):
+        card = self.card
+        if card.turn is not None:
+            card.recorder._turn_end(card)
+        card.baton.release()
+        return self
+
+    def __exit__(self, *exc):
+        card = self.card
+        card.baton.acquire()
+        if card.recorder is not None:
+            card.recorder._turn_begin(card)
+        return False
+
+
+def device_wait():
+    """A block in which the host waits on the device: on a card thread of
+    a run over several devices, another card's thread runs the host's work
+    meanwhile (the block gives up the run's baton); elsewhere nothing."""
+    card = _CARD.get()
+    if card is None or card.baton is None:
+        return _OFF
+    return _Wait(card)
+
+
+class _Turns:
+    """``card_turns``'s block."""
+
+    __slots__ = ("times", "card", "batch")
+
+    def __init__(self, times: PhaseTimes, card: _Card, batch: int):
+        self.times, self.card, self.batch = times, card, batch
+
+    def __enter__(self):
+        card = self.card
+        card.recorder, card.batch = self.times, self.batch
+        self.times._turn_begin(card)
+        return self
+
+    def __exit__(self, *exc):
+        card = self.card
+        if card.turn is not None:
+            self.times._turn_end(card)
+        card.recorder = card.batch = None
+        return False
+
+
+def card_turns(times: PhaseTimes, batch: int):
+    """A block of a card thread's work on batch ``batch``, holding the
+    baton: under a profiler each of its turns is a ``shard.turn`` span of
+    ``times`` (see the module's docstring); elsewhere nothing."""
+    card = _CARD.get()
+    if card is None or not profiling():
+        return _OFF
+    return _Turns(times, card, batch)
 
 
 def end_run(token: contextvars.Token) -> None:
