@@ -33,9 +33,22 @@
 // Equal elements are identical bit patterns, so any cut of the merge path
 // inside a run of equal elements gives the same row: the rows are
 // bit-exact against torch.sort however long the runs of duplicates.
+//
+// The live route's merge passes (attpc_merge_rows_live, the kernels'
+// `<true>` variants): the merge sort's rows whose prefix is wider than 8
+// CTAs hold are sorted over it, [0, lanes[r]) (sort_cluster.cu's head). The
+// chunk sort left each listed row's prefix as sorted chunks of 13,360
+// lanes in the buffer from which its own ceil(log2(chunks)) passes end in
+// `rows`; pass j takes the listed rows that have more than j passes, with
+// the row's prefix as its width, and reads and writes only that prefix.
+// The partition threads cover every slot of the split table, those past
+// the listed rows returning at once; the tile kernel runs as many CTAs as
+// the card holds at once, each looping over the listed rows' tiles.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sort_live.cuh"
 
 namespace {
 
@@ -115,45 +128,76 @@ __device__ void store_slice(long long* __restrict__ g, const long long* s,
   }
 }
 
+// The wide rows of a live pass and their two buffers.
+struct LivePass {
+  long long* rows;     // [.., width]: where each row's last pass ends
+  long long* scratch;  // [.., width]: the other buffer
+  const int32_t* lanes;  // each row's prefix
+  const int32_t* wide;   // how many rows are listed, then they
+  int pass;
+};
+
+// The live pass's view of list slot `slot`: false if the row has no pass
+// `pass` or pair `pair` lies past its prefix; else its prefix, and its
+// source and destination rows.
+__device__ __forceinline__ bool live_row(const LivePass& live, int64_t slot,
+                                         int64_t width, int64_t run,
+                                         int64_t pair, int64_t* w,
+                                         const long long** src,
+                                         long long** dst) {
+  const int64_t row = live.wide[1 + slot];
+  *w = live_prefix(live.lanes, row, width);
+  const int passes = live_merge_passes(*w);
+  if (live.pass >= passes || 2 * pair * run >= *w) return false;
+  const bool from_scratch = (passes - live.pass) & 1;
+  *src = (from_scratch ? live.scratch : live.rows) + row * width;
+  *dst = (from_scratch ? live.rows : live.scratch) + row * width;
+  return true;
+}
+
 // splits[(row * n_pairs + pair) * (tiles + 1) + q]: the split of diagonal
-// min(q * kTile, na + nb) of the pair, q = 0 .. tiles.
+// min(q * kTile, na + nb) of the pair, q = 0 .. tiles. Live: `row` is a
+// slot of the list and src is not read.
+template <bool kLive>
 __global__ void merge_partition_kernel(const long long* __restrict__ src,
                                        int* __restrict__ splits, int rows,
                                        int64_t width, int64_t run,
-                                       int64_t n_pairs, int64_t tiles) {
+                                       int64_t n_pairs, int64_t tiles,
+                                       LivePass live) {
   const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const int64_t per_row = n_pairs * (tiles + 1);
+  if (kLive) rows = live.wide[0];
   if (g >= rows * per_row) return;
   const int64_t row = g / per_row;
   const int64_t pair = (g - row * per_row) / (tiles + 1);
   const int64_t q = g - row * per_row - pair * (tiles + 1);
+  const long long* rs = src + row * width;
+  int64_t w = width;
+  if constexpr (kLive) {
+    long long* unused;
+    if (!live_row(live, row, width, run, pair, &w, &rs, &unused)) return;
+  }
   int64_t a, na, nb;
-  pair_bounds(pair, run, width, &a, &na, &nb);
-  const long long* ra = src + row * width + a;
+  pair_bounds(pair, run, w, &a, &na, &nb);
+  const long long* ra = rs + a;
   splits[g] = (int)split(ra, na, ra + na, nb, lmin(q * kTile, na + nb));
 }
 
-// One CTA per tile q of pair `pair` of row `row`: outputs [d0, d1) of the
-// pair, d0 = q * kTile.
-__global__ void __launch_bounds__(kThreads)
-merge_tile_kernel(const long long* __restrict__ src,
-                  long long* __restrict__ dst, const int* __restrict__ splits,
-                  int64_t width, int64_t run, int64_t n_pairs,
-                  int64_t tiles) {
-  __shared__ __align__(16) long long s[kTile];
-  const int64_t per_row = n_pairs * tiles;
-  const int64_t row = blockIdx.x / per_row;
-  const int64_t pair = (blockIdx.x - row * per_row) / tiles;
-  const int64_t q = blockIdx.x - row * per_row - pair * tiles;
+// Tile q of pair `pair` of a row of `width` elements: outputs [d0, d1) of
+// the pair, d0 = q * kTile, from rs to rd; sp: the pair's split table.
+// Every thread of the block calls it.
+__device__ __forceinline__ void merge_tile(const long long* rs, long long* rd,
+                                           const int* sp, int64_t width,
+                                           int64_t run, int64_t pair,
+                                           int64_t q, long long* s) {
   int64_t a, na, nb;
   pair_bounds(pair, run, width, &a, &na, &nb);
   const int64_t d0 = lmin(q * kTile, na + nb);
   const int64_t d1 = lmin(d0 + kTile, na + nb);
   if (d0 >= d1) return;  // past the end of a short last pair
-  const int* sp = splits + (row * n_pairs + pair) * (tiles + 1) + q;
-  const int64_t i0 = sp[0], i1 = sp[1];
+  const int64_t i0 = sp[q], i1 = sp[q + 1];
   const int la = (int)(i1 - i0), n = (int)(d1 - d0), lb = n - la;
-  const long long* ra = src + row * width + a;
+  const long long* ra = rs + a;
   load_slice(s, ra + i0, la);
   load_slice(s + la, ra + na + (d0 - i0), lb);
   __syncthreads();
@@ -181,7 +225,41 @@ merge_tile_kernel(const long long* __restrict__ src,
     if (k0 + k < n) s[k0 + k] = v[k];
   }
   __syncthreads();
-  store_slice(dst + row * width + a + d0, s, n);
+  store_slice(rd + a + d0, s, n);
+}
+
+// Generic: one CTA per tile q of pair `pair` of row `row`. Live: the CTAs
+// loop over the tiles of the listed rows' pairs (src and dst not read).
+template <bool kLive>
+__global__ void __launch_bounds__(kThreads)
+merge_tile_kernel(const long long* __restrict__ src,
+                  long long* __restrict__ dst, const int* __restrict__ splits,
+                  int64_t width, int64_t run, int64_t n_pairs,
+                  int64_t tiles, LivePass live) {
+  __shared__ __align__(16) long long s[kTile];
+  const int64_t per_row = n_pairs * tiles;
+  if constexpr (!kLive) {
+    const int64_t row = blockIdx.x / per_row;
+    const int64_t pair = (blockIdx.x - row * per_row) / tiles;
+    const int64_t q = blockIdx.x - row * per_row - pair * tiles;
+    merge_tile(src + row * width, dst + row * width,
+               splits + (row * n_pairs + pair) * (tiles + 1), width, run,
+               pair, q, s);
+  } else {
+    const int64_t items = (int64_t)live.wide[0] * per_row;
+    for (int64_t b = blockIdx.x; b < items; b += gridDim.x) {
+      const int64_t slot = b / per_row;
+      const int64_t pair = (b - slot * per_row) / tiles;
+      const int64_t q = b - slot * per_row - pair * tiles;
+      int64_t w;
+      const long long* rs;
+      long long* rd;
+      if (!live_row(live, slot, width, run, pair, &w, &rs, &rd)) continue;
+      __syncthreads();  // the previous tile's store has read s
+      merge_tile(rs, rd, splits + (slot * n_pairs + pair) * (tiles + 1), w,
+                 run, pair, q, s);
+    }
+  }
 }
 
 struct Plan {
@@ -227,13 +305,80 @@ extern "C" int attpc_merge_rows_pass(const void* src, void* dst,
   cudaStream_t st = (cudaStream_t)stream;
   const unsigned part_blocks =
       (unsigned)((p.n_splits + kPartitionThreads - 1) / kPartitionThreads);
-  merge_partition_kernel<<<part_blocks, kPartitionThreads, 0, st>>>(
+  merge_partition_kernel<false><<<part_blocks, kPartitionThreads, 0, st>>>(
       (const long long*)src, (int*)splits, rows, width, run, p.n_pairs,
-      p.tiles);
+      p.tiles, LivePass{});
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  merge_tile_kernel<<<(unsigned)p.blocks, kThreads, 0, st>>>(
+  merge_tile_kernel<false><<<(unsigned)p.blocks, kThreads, 0, st>>>(
       (const long long*)src, (long long*)dst, (const int*)splits, width, run,
-      p.n_pairs, p.tiles);
+      p.n_pairs, p.tiles, LivePass{});
   return (int)cudaGetLastError();
+}
+
+// int32 entries of the split table that the live route's merge passes over
+// [rows, width] need: the most any pass needs, since runs of 13360 << j
+// leave a short last pair and a later pass can need more than the first.
+// 0 where no prefix can pass kLiveClusterLanes (no wide route).
+extern "C" int64_t attpc_merge_rows_live_splits(int rows, int64_t width) {
+  if (rows <= 0 || width <= kLiveClusterLanes) return 0;
+  int64_t most = 0;
+  for (int j = 0; j < live_merge_passes(width); ++j) {
+    const int64_t n = plan(rows, width, (int64_t)kLiveChunk << j).n_splits;
+    most = n > most ? n : most;
+  }
+  return most;
+}
+
+// The live route's merge passes over rows [rows, width] (sort_cluster.cu's
+// attpc_sort_rows_live, whose chunk sort must precede them on the same
+// stream, with the same rows, scratch, lanes and list): pass j = 0 .. for
+// each listed row with more than j passes, until every row's prefix is
+// one sorted run in `rows`. `splits` holds splits_len int32 entries
+// (attpc_merge_rows_live_splits). Returns the first cudaError_t met.
+extern "C" int attpc_merge_rows_live(void* rows_buf, void* scratch,
+                                     const void* lanes, const void* wide,
+                                     void* splits, int64_t splits_len,
+                                     int rows, int64_t width, void* stream) {
+  if (rows <= 0 || width <= kLiveClusterLanes) return (int)cudaSuccess;
+  if (scratch == nullptr || wide == nullptr || rows_buf == scratch) {
+    return (int)cudaErrorInvalidValue;
+  }
+  int device = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, merge_tile_kernel<true>, kThreads, 0);
+  }
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = (cudaStream_t)stream;
+  LivePass live{(long long*)rows_buf, (long long*)scratch,
+                (const int32_t*)lanes, (const int32_t*)wide, 0};
+  const int passes = live_merge_passes(width);
+  for (live.pass = 0; live.pass < passes; ++live.pass) {
+    const int64_t run = (int64_t)kLiveChunk << live.pass;
+    const Plan p = plan(rows, width, run);
+    if (p.n_splits > splits_len || 2 * run > 0x7fffffffLL ||
+        p.blocks > 0x7fffffffLL) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const unsigned part_blocks =
+        (unsigned)((p.n_splits + kPartitionThreads - 1) / kPartitionThreads);
+    merge_partition_kernel<true><<<part_blocks, kPartitionThreads, 0, st>>>(
+        nullptr, (int*)splits, rows, width, run, p.n_pairs, p.tiles, live);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    const int64_t resident = (int64_t)sms * (per_sm > 0 ? per_sm : 1);
+    merge_tile_kernel<true>
+        <<<(unsigned)(p.blocks < resident ? p.blocks : resident), kThreads, 0,
+           st>>>(nullptr, nullptr, (const int*)splits, width, run, p.n_pairs,
+                 p.tiles, live);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }

@@ -23,7 +23,9 @@ reasoning behind each step):
    ``packed_key_lookup_rows`` (K6, ``"one_stage"``),
 4. the per-event merge of equal (pad, tb) keys (``_merge_runs``; with
    ``merge="sorts"`` a row sort through ``sort_cuda.sort_rows``, K3, and
-   the run-end compaction with its charge prefix, ``compact_runs``; with
+   the run-end compaction with its charge prefix, ``compact_runs``; the
+   default configuration's rows take K3's live route,
+   ``sort_cuda.sort_rows_live``, over each event's point prefix; with
    ``"fused"`` ``merge_cuda.merge_runs_fused``, K5), the last writer's
    label, and the overflow counters.
 """
@@ -46,7 +48,7 @@ from .deposit_cuda import (
 )
 from .merge_cuda import KEY_SENTINEL, fits_fused, merge_runs_fused
 from .parameters import PAD_TABLE_NX, PAD_TABLE_NY
-from .sort_cuda import pack64, sort_rows, unpack64
+from .sort_cuda import pack64, sort_rows, sort_rows_live, unpack64
 
 __all__ = [
     "philox4x32",
@@ -66,6 +68,7 @@ __all__ = [
     "KEY_SENTINEL",
     "MERGES",
     "LOOKUPS",
+    "rows_path",
 ]
 
 MESH_STEPS = 10  # reference transporter.py:8
@@ -74,6 +77,14 @@ NUM_TB = 512
 # package's pallas_sort (True | "fused") and lookup_two_stage (True | False)
 MERGES = ("sorts", "fused")
 LOOKUPS = ("two_stage", "one_stage")
+
+
+def rows_path(merge: str, lookup: str) -> bool:
+    """Whether the step of ``merge`` and ``lookup`` takes the rows path:
+    the deposit-rows kernel writes the int64 merge rows, and K3's live
+    route (``sort_rows_live``) sorts each over its point prefix. The
+    default configuration's path."""
+    return merge == "sorts" and lookup == "two_stage"
 # The mesh offsets in sigma units, -3 .. 3, as the JAX package's compiled
 # detector program computes jnp.linspace(-3, 3, 10, dtype=float32) at run
 # time (four values differ by one ulp from an eager jnp.linspace, and
@@ -291,12 +302,17 @@ def _merge_runs(packed: torch.Tensor, qv: torch.Tensor, cap: int,
     return _merge_rows(pack64(packed, qv), cap, rank_bits)
 
 
-def _merge_rows(rows: torch.Tensor, cap: int, rank_bits: int):
+def _merge_rows(rows: torch.Tensor, cap: int, rank_bits: int,
+                lanes: torch.Tensor | None = None):
     """The sorts path of ``_merge_runs`` on rows already packed, int64
     ``pack64(packed, qv)`` [E, W]: a row sort (K3), then the run-end
-    compaction (``compact_runs``). Returns as ``_merge_runs``."""
+    compaction (``compact_runs``). With int32 [E] ``lanes``, past which
+    every lane of a row is the sentinel, the sort is K3's live route
+    (``sort_rows_live``), which may sort ``rows`` in place. Returns as
+    ``_merge_runs``."""
     cap = min(cap, rows.shape[1])
-    return _run_sums(*compact_runs(sort_rows(rows), cap, rank_bits))
+    srt = sort_rows(rows) if lanes is None else sort_rows_live(rows, lanes)
+    return _run_sums(*compact_runs(srt, cap, rank_bits))
 
 
 def compact_runs_plain(sorted_rows: torch.Tensor, cap: int, rank_bits: int):
@@ -545,7 +561,7 @@ def deposit_and_merge(
         tbr = (ptbi << rank_bits) | prank
         phys = (grid_lo_mm, grid_n_mm, diffusion, efield, drift_velocity)
         # one kernel writes the int64 rows the merge sort takes
-        rows_kernel = merge == "sorts" and lookup == "two_stage"
+        rows_kernel = rows_path(merge, lookup)
         if rows_kernel:
             rows = deposit_rows(*(a.reshape(e, pb) for a in (
                 px, py, ptbf, pne, tbr, taken)), pad_table, *phys, rank_bits)
@@ -556,7 +572,11 @@ def deposit_and_merge(
                                          taken, pad_table, *phys, rank_bits)
     with stage("step.merge"):
         if rows_kernel:
-            key2, sums, valid2, n_uniq = _merge_rows(rows, u_cap, rank_bits)
+            # the rows' point prefixes: deposit_rows fills slots [0,
+            # min(n_points, pb)) of each event and leaves the rest empty
+            lanes = torch.clamp(n_points, max=pb) * (MESH_STEPS * MESH_STEPS)
+            key2, sums, valid2, n_uniq = _merge_rows(rows, u_cap, rank_bits,
+                                                     lanes)
         else:
             w = pb * MESH_STEPS * MESH_STEPS
             key2, sums, valid2, n_uniq = _merge_runs(

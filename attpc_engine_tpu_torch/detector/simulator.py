@@ -57,17 +57,19 @@ from ..utils.profiling import (
 from .deposition import (
     LOOKUPS,
     MERGES,
+    MESH_STEPS,
     compact_cloud,
     deposit_and_merge,
     fano_noise,
     generate_electrons,
     raw_wiggle,
+    rows_path,
 )
 from . import assemble_cuda
 from .assemble import AssembleTables
 from .parameters import PAD_ID_SENTINEL, PAD_TABLE_NX, PAD_TABLE_NY, Config
 from .response import get_response
-from .sort_cuda import sort_rows
+from .sort_cuda import live_sites, sort_rows
 from .transport import TrackSpecies, integrate_tracks
 
 __all__ = [
@@ -845,6 +847,19 @@ class _HostCopies:
                              if ref() is None)
 
 
+def _count_merge_sort(times: PhaseTimes, n_points: np.ndarray,
+                      point_budget: int) -> None:
+    """One step's counters of K3's live merge sort (``run_reader``'s
+    "merge_sort.*"), from its events' n_points on the host."""
+    per_point = MESH_STEPS * MESH_STEPS
+    lanes = np.minimum(n_points.astype(np.int64), point_budget) * per_point
+    times.count("merge_sort.lanes", n=int(lanes.sum()))
+    times.count("merge_sort.width_lanes",
+                n=len(lanes) * point_budget * per_point)
+    for site, rows in live_sites(lanes).items():
+        times.count("merge_sort.rows", site, rows)
+
+
 def _round_up(k, q: int) -> int:
     """k rounded up to a multiple of q, at least q (simulator.py:1327-1330)."""
     return max(((int(k) + q - 1) // q) * q, q)
@@ -991,9 +1006,10 @@ def run_reader(
                    else engine.n_time_steps),
         )
         tuned = not auto_tune
+        live_sort = rows_path(engine.merge, engine.lookup)
 
-        def pull_batch(sim, out, n: int, cur_steps: int, start: int,
-                       batch: int):
+        def pull_batch(sim, out, n: int, cur_steps: int, point: int,
+                       start: int, batch: int):
             """The metadata of events [start, start + n) (a sync, before
             the next dispatch), its overflows raised as PoolOverflow, then
             its Spyral assembly on the device, or the pull of its
@@ -1006,6 +1022,8 @@ def run_reader(
                 with device_wait():
                     meta = out["meta_i32"].cpu().numpy()
             times.resolve()
+            if live_sort:
+                _count_merge_sort(times, meta[n:2 * n], point)
             cloud_overflow = 0
             if "cloud_overflow" in out:
                 times.count("syncs", "cloud-overflow")
@@ -1067,7 +1085,8 @@ def run_reader(
                     after_dispatch = None
                 try:
                     return pull_batch(sim, out, len(vertices),
-                                      shard_budgets["steps"], start, batch)
+                                      shard_budgets["steps"],
+                                      shard_budgets["point"], start, batch)
                 except PoolOverflow as ov:
                     for kind in ov.kinds:
                         times.count("retries", kind)
@@ -1384,7 +1403,15 @@ def run_simulation(
     for the copies to the host; "retries", the batches run again, by the
     budget that overflowed; "batches", the batches read while a torch
     profiler recorded; over several devices "shard.events", the events
-    each card ran, by card ("card-0", ...).
+    each card ran, by card ("card-0", ...); in the default configuration
+    (``merge="sorts"``, ``lookup="two_stage"``), whose merge sort takes
+    K3's live route over each event's point prefix (``sort_cuda.
+    sort_rows_live``), counted from each step's metadata: "merge_sort.lanes",
+    the prefixes' lanes (min(n_points, point_budget) * 100 an event),
+    "merge_sort.width_lanes", the rows' lanes (point_budget * 100 an
+    event), and "merge_sort.rows", the events by the route their prefix
+    takes on the card (``sort_cuda.live_sites``: "cluster-1" ...
+    "cluster-8", "wide", "empty").
 
     "spans", while a torch profiler records (``utils.trace_to``; empty
     without one): each span's host seconds, count and, for a step stage

@@ -32,9 +32,23 @@ width alone before any launch:
 This is a width rule, not a fallback: a launch that fails raises.
 ``sort_rows`` takes ``torch.sort`` (the plain version) for CPU tensors and
 launches the kernels for CUDA tensors, raising where they cannot take
-them. ``launches_cluster`` and ``launches_wide`` count the calls that take
-each route and ``launches`` their sum. ``pack64`` and ``unpack64`` make and
-split the merge sorts' int64 (key, charge) elements.
+them.
+
+The default step's merge sort takes a third route, ``sort_rows_live``
+(the **live** route, ``attpc_sort_rows_live`` and ``attpc_merge_rows_live``):
+given each row's prefix ``lanes`` = min(n_points, point_budget) * 100,
+past which every lane is the sentinel element ``pack64(KEY_SENTINEL,
+0.0)``, it sorts each row in place over its prefix alone, keeping only the
+lanes that are not the sentinel, so that its work follows the live lanes
+and not the width; the rows are the same bits as ``sort_rows``'s. Each row
+takes, on the card, the smallest cluster of at most 8 CTAs whose CTAs
+hold its prefix, or else the wide route over the prefix (``live_sites``
+counts the rows by route; the kernels' head comments give the design).
+Its plain version, for CPU tensors, is ``torch.sort`` of the whole row.
+
+``launches_cluster``, ``launches_wide`` and ``launches_live`` count the
+calls that take each route and ``launches`` their sum. ``pack64`` and
+``unpack64`` make and split the merge sorts' int64 (key, charge) elements.
 """
 
 from __future__ import annotations
@@ -42,6 +56,7 @@ from __future__ import annotations
 import ctypes
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .. import kernels
@@ -50,7 +65,10 @@ __all__ = [
     "sort_rows",
     "sort_rows_plain",
     "sort_rows_cuda",
+    "sort_rows_live",
+    "sort_rows_live_cuda",
     "route",
+    "live_sites",
     "wide_plan",
     "sort_wide",
     "Route",
@@ -59,6 +77,7 @@ __all__ = [
     "launches",
     "launches_cluster",
     "launches_wide",
+    "launches_live",
 ]
 
 # cluster route (csrc/sort_cluster.cu): shared memory of one CTA
@@ -75,10 +94,17 @@ CLUSTER_SIZES = (1, 2, 4, 8, 16)
 # half-CTA chunks slower (tools/profile_torch_step.py --wide-phases;
 # the table is in PERF.md)
 WIDE_CHUNK = CTA_CAPACITY
+# live route: prefixes up to 8 CTAs' worth take a cluster, wider ones the
+# wide route over the prefix, in chunks of CTA_CAPACITY (csrc/sort_live.cuh
+# gives the measurement behind 8)
+LIVE_CLUSTER_LANES = 8 * CTA_CAPACITY
+LIVE_CLUSTER_SIZES = tuple(n for n in CLUSTER_SIZES
+                           if n * CTA_CAPACITY <= LIVE_CLUSTER_LANES)
 
 launches = 0
 launches_cluster = 0
 launches_wide = 0
+launches_live = 0
 
 _MASK32 = 0xFFFFFFFF
 _schedulable: dict[int, int] = {}
@@ -145,6 +171,21 @@ def route(width: int) -> Route:
     return wide_plan(width, chunks)
 
 
+def live_sites(lanes) -> dict[str, int]:
+    """Rows by the live route's site of their prefixes (any int array),
+    the sites with at least one row: "cluster-<n>" for the smallest cluster
+    of ``LIVE_CLUSTER_SIZES`` whose CTAs hold the prefix, "wide" past
+    ``LIVE_CLUSTER_LANES``, "empty" for an empty prefix, which no launch
+    sorts."""
+    lanes = np.asarray(lanes, dtype=np.int64)
+    edges = np.array([0] + [n * CTA_CAPACITY for n in LIVE_CLUSTER_SIZES])
+    names = (["empty"] + [f"cluster-{n}" for n in LIVE_CLUSTER_SIZES]
+             + ["wide"])
+    counts = np.bincount(np.searchsorted(edges, lanes, side="left"),
+                         minlength=len(names))
+    return {name: int(c) for name, c in zip(names, counts) if c}
+
+
 def pack64(key: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     """Nonnegative int32 key in the high word, the f32 value's bits in the
     low word (deposition.py:241-249): for nonnegative values int64 order is
@@ -165,26 +206,28 @@ def sort_rows_plain(x: torch.Tensor) -> torch.Tensor:
     return torch.sort(x, dim=1).values
 
 
-def _require_schedulable(r: Route) -> None:
-    """Raise unless the card can run one cluster of ``r.n_cta`` CTAs at
-    full capacity; asked once per cluster size."""
-    if r.n_cta not in _schedulable:
+def _require_schedulable(n_cta: int) -> int:
+    """Raise unless the card can run one cluster of ``n_cta`` CTAs at
+    full capacity; asked once per cluster size. Returns how many such
+    clusters the card holds at once."""
+    if n_cta not in _schedulable:
         n = ctypes.c_int(0)
         err = kernels.library().attpc_sort_rows_cluster_occupancy(
-            r.n_cta, CTA_CAPACITY, ctypes.byref(n))
+            n_cta, CTA_CAPACITY, ctypes.byref(n))
         kernels.check(err, "sort_rows_cluster occupancy")
-        _schedulable[r.n_cta] = n.value
-    if _schedulable[r.n_cta] < 1:
-        raise RuntimeError(f"the card cannot schedule a cluster of "
-                           f"{r.n_cta} CTAs with {r.shared_bytes} B of "
-                           f"shared memory each")
+        _schedulable[n_cta] = n.value
+    if _schedulable[n_cta] < 1:
+        raise RuntimeError(f"the card cannot schedule a cluster of {n_cta} "
+                           f"CTAs with {16 * CTA_CAPACITY + FIXED_BYTES} B "
+                           f"of shared memory each")
+    return _schedulable[n_cta]
 
 
 def _sort_chunks(x: torch.Tensor, out: torch.Tensor, r: Route) -> None:
     """Each of the ``r.chunks`` chunks of every row of ``x`` sorted into the
     same place of ``out`` by the cluster kernel: the whole row on the
     cluster route, phase A on the wide route."""
-    _require_schedulable(r)
+    _require_schedulable(r.n_cta)
     e, w = x.shape
     last = w - (r.chunks - 1) * r.chunk_w
     err = kernels.library().attpc_sort_rows_cluster(
@@ -240,6 +283,63 @@ def sort_rows_cuda(x: torch.Tensor) -> torch.Tensor:
         launches_wide += 1
     launches += 1
     return out
+
+
+def sort_rows_live_cuda(rows: torch.Tensor,
+                        lanes: torch.Tensor) -> torch.Tensor:
+    """The live route on a contiguous CUDA int64 [E, W] ``rows`` with
+    int32 [E] ``lanes``: each row sorted in place over [0, lanes[i]), every
+    lane at or past which must be the sentinel element (``sort_rows_live``).
+    Allocates, where a prefix can pass ``LIVE_CLUSTER_LANES``, one scratch
+    like ``rows``, the wide-row list and the split table. Returns
+    ``rows``."""
+    global launches, launches_live
+    if rows.dim() != 2:
+        raise ValueError(f"expected [E, W], got shape {tuple(rows.shape)}")
+    kernels.require(rows, "rows", torch.int64)
+    kernels.require(lanes, "lanes", torch.int32)
+    e, w = rows.shape
+    if tuple(lanes.shape) != (e,) or lanes.device != rows.device:
+        raise ValueError(f"lanes: expected int32 [{e}] on {rows.device}")
+    for n_cta in LIVE_CLUSTER_SIZES:
+        _require_schedulable(n_cta)
+    lib = kernels.library()
+    stream = kernels.stream(rows)
+    # the wide route's split table; none where no prefix can pass
+    # LIVE_CLUSTER_LANES, and then neither a scratch nor a list
+    n_splits = lib.attpc_merge_rows_live_splits(e, w)
+    if not n_splits:
+        err = lib.attpc_sort_rows_live(kernels.ptr(rows), None,
+                                       kernels.ptr(lanes), None, e, w, 0,
+                                       stream)
+        kernels.check(err, "sort_rows_live")
+    else:
+        scratch = torch.empty_like(rows)
+        listed = torch.empty(1 + e, dtype=torch.int32, device=rows.device)
+        splits = torch.empty(n_splits, dtype=torch.int32, device=rows.device)
+        buffers = [kernels.ptr(t) for t in (rows, scratch, lanes, listed)]
+        err = lib.attpc_sort_rows_live(*buffers, e, w, _schedulable[1],
+                                       stream)
+        kernels.check(err, "sort_rows_live")
+        err = lib.attpc_merge_rows_live(*buffers, kernels.ptr(splits),
+                                        n_splits, e, w, stream)
+        kernels.check(err, "merge_rows_live")
+    launches_live += 1
+    launches += 1
+    return rows
+
+
+def sort_rows_live(rows: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
+    """Each row of int64 [E, W] ``rows`` ascending, given int32 [E]
+    ``lanes``: every lane of row i at or past lanes[i] is the sentinel
+    element ``pack64(KEY_SENTINEL, 0.0)``, and no lane is above it (the
+    default step's merge rows, lanes = min(n_points, point_budget) * 100).
+    The live route for CUDA tensors, which sorts ``rows`` in place and
+    returns it; ``torch.sort`` of the whole row for CPU tensors, which
+    returns a new tensor. Either way the caller reads only the result."""
+    if rows.is_cuda:
+        return sort_rows_live_cuda(rows, lanes)
+    return sort_rows_plain(rows)
 
 
 def sort_rows(x: torch.Tensor) -> torch.Tensor:

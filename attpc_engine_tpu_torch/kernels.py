@@ -167,8 +167,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.attpc_sort_rows_cluster.argtypes = [
         vp, vp, i32, i64, i32, i32, i64, i32, i64, vp]
     lib.attpc_merge_rows_pass.argtypes = [vp, vp, vp, i64, i32, i64, i64, vp]
+    lib.attpc_sort_rows_live.argtypes = [vp] * 4 + [i32, i64, i32, vp]
+    lib.attpc_merge_rows_live.argtypes = [vp] * 5 + [i64, i32, i64, vp]
     lib.attpc_merge_rows_splits.argtypes = [i32, i64, i64]
     lib.attpc_merge_rows_splits.restype = i64
+    lib.attpc_merge_rows_live_splits.argtypes = [i32, i64]
+    lib.attpc_merge_rows_live_splits.restype = i64
     lib.attpc_sort_rows_cluster_occupancy.argtypes = [
         i32, i32, ctypes.POINTER(i32)]
     lib.attpc_merge_tail.argtypes = [vp] * 4 + [i32, i64, i32, i32, vp]
@@ -186,7 +190,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                lib.attpc_packed_key_lookup_rows, lib.attpc_pad_lookup,
                lib.attpc_deposit_rows, lib.attpc_sort_rows_cluster,
                lib.attpc_sort_rows_cluster_occupancy,
-               lib.attpc_merge_rows_pass, lib.attpc_merge_tail,
+               lib.attpc_merge_rows_pass, lib.attpc_sort_rows_live,
+               lib.attpc_merge_rows_live, lib.attpc_merge_tail,
                lib.attpc_merge_cluster, lib.attpc_merge_cluster_occupancy,
                lib.attpc_compact_runs, lib.attpc_assemble_spyral):
         fn.restype = ctypes.c_int

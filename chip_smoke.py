@@ -57,7 +57,17 @@ Phases (each raises on failure, and nothing is caught):
    nothing but its output and the wide route nothing but its output, one
    scratch of the rows' size and its split table; the wide route's
    design floor (1 + log2 chunks times the bound) is printed beside its
-   bound. Times by CUDA events, beside each kernel's
+   bound. K3's live route (``sort_cuda.sort_rows_live``, the default
+   step's merge sort over each row's point prefix) against torch.sort of
+   the whole row bit for bit, on the flagship's own merge rows and prefixes at
+   point budgets 1,920, 5,120 and 8,192 ([384, 192000] and [384, 819200]
+   are c16dd's and the chain's tuned widths; at [384, 512000] a later
+   merge pass needs the most splits) and on synthetic rows of those widths
+   whose prefixes run to the whole row (its wide route); one live call
+   each, no generic route; timed beside the full-width sort and the bound
+   of the prefix's bytes and of the row's, with the rows' prefix and live
+   shares and their routes (``sort_cuda.live_sites``).
+   Times by CUDA events, beside each kernel's
    bound (bytes over 3.35 TB/s or f32 operations over 67 TFLOP/s,
    whichever is larger; for K1 also its latency bound: the critical path
    of one step in the SASS of this checkout's ``transport.cu``, at
@@ -75,8 +85,9 @@ Phases (each raises on failure, and nothing is caught):
    through ``DetectorSimulator.simulate_batch`` and the host Spyral
    assembly. h5py is not required on the card, so the HDF5 writers are not
    driven here. K1, the deposit-rows kernel, K3 (twice a batch: the merge
-   and the convert sort) and the run-end compaction (once a batch) must
-   have been launched by this phase, K2 not, K3 on its cluster route only;
+   sort on its live route and the convert sort on its cluster route) and
+   the run-end compaction (once a batch) must have been launched by this
+   phase, K2 not, K3's wide route not;
    the rows must be
    well formed; eight events run on the card must agree with the same
    eight run on the CPU through the plain versions. Every batch's rows are
@@ -120,7 +131,7 @@ Phases (each raises on failure, and nothing is caught):
    the budget ``run_simulation``'s overflow retry reaches after two
    doublings, over two batches (the first is warm-up): K1, the
    deposit-rows kernel, K3 and the compaction must have been launched, K3
-   on its wide route for the merge sort of each batch ([384, 409600] rows)
+   on its live route for the merge sort of each batch ([384, 409600] rows)
    and on its cluster route for the convert sort, the compaction once a
    batch; the first batch's ``meta_i32`` and
    packed rows must equal, bit for bit, phase 4's first batch (point
@@ -319,7 +330,7 @@ DEFAULT_PER_BATCH = {"sort_rows": 2, "compact_runs": 1}
 
 # per-route launch counters beside a kernel's total
 ROUTES = {"sort_rows": {"cluster": "launches_cluster",
-                        "wide": "launches_wide"}}
+                        "wide": "launches_wide", "live": "launches_live"}}
 
 
 def card_line() -> str:
@@ -804,26 +815,98 @@ def sort_inputs(width: int, convert: bool) -> torch.Tensor:
     return sort_cuda.pack64(key, q)
 
 
-def flagship_sort_rows(sim, vertices, momenta) -> torch.Tensor:
-    """The rows the first default batch hands its first merge sort: the
-    flagship's own pack64(key, charge) elements."""
+def flagship_merge_rows(sim, vertices, momenta):
+    """The rows and prefixes the first default batch hands its merge sort
+    (K3's live route): the flagship's own pack64(key, charge) elements and
+    min(n_points, point_budget) * 100 an event."""
     from attpc_engine_tpu_torch.detector import deposition
 
     seen = []
-    real = deposition.sort_rows
+    real = deposition.sort_rows_live
 
-    def spy(x):
+    def spy(x, lanes):
         if not seen:
-            seen.append(x.clone())
-        return real(x)
+            seen.append((x.clone(), lanes.clone()))
+        return real(x, lanes)
 
-    deposition.sort_rows = spy
+    deposition.sort_rows_live = spy
     try:
         sim.simulate_batch(vertices[:BATCH], momenta[:BATCH], seed=SEED,
                            assemble=False)
     finally:
-        deposition.sort_rows = real
+        deposition.sort_rows_live = real
     return seen[0]
+
+
+def flagship_sort_rows(sim, vertices, momenta) -> torch.Tensor:
+    """The rows the first default batch hands its merge sort."""
+    return flagship_merge_rows(sim, vertices, momenta)[0]
+
+
+def check_live_sort(x: torch.Tensor, lanes: torch.Tensor, label: str,
+                    card: str) -> dict:
+    """K3's live route against torch.sort of the whole row (the plain
+    version, on the card) on rows ``x`` with prefixes ``lanes``:
+    bit-exact, one live call and no generic route; timed beside K3's
+    full-width sort (``sort_rows``) and the bounds of the prefixes' bytes
+    and of the rows' (each lane read and written once)."""
+    from attpc_engine_tpu_torch.detector import sort_cuda
+
+    ref = sort_cuda.sort_rows_plain(x)
+    before = (sort_cuda.launches_live, sort_cuda.launches_cluster,
+              sort_cuda.launches_wide)
+    got = sort_cuda.sort_rows_live(x.clone(), lanes)
+    after = (sort_cuda.launches_live, sort_cuda.launches_cluster,
+             sort_cuda.launches_wide)
+    if tuple(a - b for a, b in zip(after, before)) != (1, 0, 0):
+        raise AssertionError(f"K3 live {label}: launches {before} -> "
+                             f"{after}")
+    n_bad = int((got != ref).sum())
+    if n_bad:
+        raise AssertionError(f"K3 live {label} {list(x.shape)}: {n_bad} "
+                             f"elements differ from torch.sort")
+    del got, ref
+    reps = 5
+    copies = [x.clone() for _ in range(reps + 1)]
+    it = iter(copies)
+    ms = cuda_ms(lambda: sort_cuda.sort_rows_live(next(it), lanes), reps)
+    del copies, it
+    full_ms = cuda_ms(lambda: sort_cuda.sort_rows(x), reps)
+    prefix = int(lanes.sum())
+    live = int(((x >> 32) != 2**31 - 1).sum())
+    bnd_prefix = bound(2 * prefix * 8)["bound_ms"]
+    bnd_row = bound(2 * x.numel() * 8)["bound_ms"]
+    sites = sort_cuda.live_sites(lanes.cpu().numpy())
+    print(f"K3 live route, {label} {list(x.shape)}: bit-exact against "
+          f"torch.sort; prefix share {prefix / x.numel():.4f}, live "
+          f"share {live / x.numel():.4f}, routes {sites}; live route "
+          f"{ms:.3f} ms, full-width sort {full_ms:.3f} ms, bound of the "
+          f"prefixes {bnd_prefix:.4f} ms, of the rows {bnd_row:.4f} ms "
+          f"[{card}]")
+    return {"width": x.shape[1], "ms": ms, "full_width_ms": full_ms,
+            "bound_prefix_ms": bnd_prefix, "bound_ms": bnd_row,
+            "prefix_share": prefix / x.numel(),
+            "live_share": live / x.numel(), "sites": sites}
+
+
+def wide_live_inputs(width: int) -> tuple:
+    """[384, width] merge rows whose prefixes run from 0 to the whole row
+    (so that the live route's wide route takes some), a fifth of each
+    prefix dead, and the prefixes."""
+    from attpc_engine_tpu_torch.detector import sort_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + width)
+    lanes = torch.randint(0, width + 1, (BATCH,), generator=g,
+                          device="cuda", dtype=torch.int32)
+    lanes[:3] = torch.tensor([0, width,
+                              min(width, sort_cuda.LIVE_CLUSTER_LANES + 1)])
+    shape = (BATCH, width)
+    inside = torch.arange(width, device="cuda")[None, :] < lanes[:, None]
+    live = inside & (torch.rand(shape, generator=g, device="cuda") > 0.2)
+    key = torch.randint(0, 6000, shape, generator=g, device="cuda") << 1
+    q = torch.rand(shape, generator=g, device="cuda") * 100
+    return sort_cuda.pack64(torch.where(live, key, 2**31 - 1),
+                            torch.where(live, q, 0.0)), lanes
 
 
 def check_sort(x: torch.Tensor, label: str, route: tuple, card: str) -> dict:
@@ -1183,7 +1266,7 @@ def same_bits(label: str, got, ref) -> None:
 
 
 def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
-              card: str, wide_per_batch: int = 0,
+              card: str, wide_per_batch: int = 0, live_per_batch: int = 0,
               per_batch: dict | None = None, keep_rows: bool = False) -> dict:
     """The batches of ``vertices`` through simulate_batch and the Spyral
     assembly on the card (``assemble_device``, keyed by global event id as
@@ -1192,7 +1275,9 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
     until the metadata reached the host), and so are the assembly (launch
     to sync) and the pageable copy of its rows to the host. K3 must take
     its wide route ``wide_per_batch`` times a batch (0 at the flagship's
-    widths) and its cluster route at least once; the assembly kernel and
+    widths), its live route ``live_per_batch`` times (1 on the default
+    step's path: its merge sort) and its cluster route at least once; the
+    assembly kernel and
     each kernel named in ``per_batch`` must have been launched exactly
     that many times a batch (the assembly once). After the counted run,
     every batch's rows must equal the C++ library's assembly of its packed
@@ -1249,9 +1334,11 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
                              f"{missing}, kernels off the path launched "
                              f"{extra}: {launches}")
     k3 = routes["sort_rows"]
-    if k3["cluster"] == 0 or k3["wide"] != wide_per_batch * len(step_s):
+    if (k3["cluster"] == 0 or k3["wide"] != wide_per_batch * len(step_s)
+            or k3["live"] != live_per_batch * len(step_s)):
         raise AssertionError(f"{label}: K3 by route {k3}, expected the "
-                             f"wide route {wide_per_batch} times a batch")
+                             f"wide route {wide_per_batch} and the live "
+                             f"route {live_per_batch} times a batch")
     per_batch = {"assemble": 1, **(per_batch or {})}
     off = {k: launches[k] for k, n in per_batch.items()
            if launches[k] != n * len(step_s)}
@@ -1552,8 +1639,8 @@ def check_driver_run(label: str, calls: list, budgets: dict, launches: dict,
                      routes: dict) -> None:
     """An auto-tuned driver run of the default configuration: the first
     dispatch is the probe, the tuned budgets are no wider than the
-    defaults, K1, the deposit-rows kernel, K3 (cluster route only) and the
-    compaction were launched and no kernel off that path."""
+    defaults, K1, the deposit-rows kernel, K3 (its live and cluster routes)
+    and the compaction were launched and no kernel off that path."""
     from attpc_engine_tpu_torch.detector import EngineParams
 
     defaults = EngineParams()
@@ -1573,15 +1660,18 @@ def check_driver_run(label: str, calls: list, budgets: dict, launches: dict,
 
 
 def check_default_launches(label: str, launches: dict, routes: dict) -> None:
-    """K1, the deposit-rows kernel, K3 (cluster route only) and the run-end
-    compaction were launched, and no kernel off the default step's path
-    (K2 among them)."""
+    """K1, the deposit-rows kernel, K3 (its live route for the merge sort,
+    its cluster route for the convert sort) and the run-end compaction
+    were launched, and no kernel off the default step's path (K2 and K3's
+    wide route among them)."""
     missing = [k for k in ("transport", "deposit_rows", "sort_rows",
                            "compact_runs") if launches[k] == 0]
     extra = [k for k in ("deposit", "merge_cluster", "merge_fused",
                          "packed_key_lookup_rows", "pad_lookup",
                          "sort_rows_wide") if launches[k] != 0]
-    if missing or extra or routes["sort_rows"]["wide"]:
+    if (missing or extra or routes["sort_rows"]["wide"]
+            or not routes["sort_rows"]["live"]
+            or not routes["sort_rows"]["cluster"]):
         raise AssertionError(f"{label}: never launched {missing}, launched "
                              f"off the path {extra}: {launches}")
 
@@ -2026,7 +2116,7 @@ def multihost_path(sim, events_a, card: str) -> dict:
     print(f"4m: the union of {len(children)} processes' rows equals the "
           f"single process's bit for bit ({len(single[0])} rows, {n} events)")
     summed = {k: 0 for k in KERNELS}
-    summed_routes = {"sort_rows": {"cluster": 0, "wide": 0}}
+    summed_routes = {"sort_rows": {"cluster": 0, "wide": 0, "live": 0}}
     for _, info in children:
         label = f"4m process {info['rank']}"
         check_default_launches(label, info["launches"], info["routes"])
@@ -2127,6 +2217,21 @@ def main() -> int:
             torch.full((BATCH, 4 * w), (2**31 - 1) << 32, device="cuda"),
             "rows of one value", ("wide", None), card),
     }
+    # K3's live route at c16dd's and the chain's tuned merge widths, and
+    # at point budget 5,120, whose fourth merge pass needs the most splits
+    lives = {}
+    for pb in (1920, 5120, 8192):
+        sim_pb, _, _ = flagship_simulator("cuda", point_budget=pb)
+        rows_pb, lanes_pb = flagship_merge_rows(sim_pb, vertices, momenta)
+        lives[f"flagship_{pb * 100}"] = check_live_sort(
+            rows_pb, lanes_pb, f"flagship merge rows at point budget {pb:,}",
+            card)
+        del sim_pb, rows_pb, lanes_pb
+        x_pb, lanes_pb = wide_live_inputs(pb * 100)
+        lives[f"synthetic_{pb * 100}"] = check_live_sort(
+            x_pb, lanes_pb, "synthetic rows, prefixes up to the whole row",
+            card)
+        del x_pb, lanes_pb
     compactions = {
         "flagship": check_compact(flagship_sort_rows(sim, vertices, momenta),
                                   cap, "flagship merge rows", card),
@@ -2197,7 +2302,7 @@ def main() -> int:
                              ("deposit", "merge_cluster", "merge_fused",
                               "packed_key_lookup_rows", "pad_lookup",
                               "sort_rows_wide"), card, keep_rows=True,
-                             per_batch=DEFAULT_PER_BATCH),
+                             live_per_batch=1, per_batch=DEFAULT_PER_BATCH),
         "fused": main_path(sim_fused, vertices, momenta, "fused",
                            ("transport", "sort_rows", "merge_cluster",
                             "packed_key_lookup_rows"),
@@ -2225,10 +2330,10 @@ def main() -> int:
         "cuda", point_budget=RETRY_POINT_BUDGET)
     paths["retry_width"] = main_path(
         sim_retry, vertices[:2 * BATCH], momenta[:2 * BATCH], "retry-width",
-        ("transport", "deposit_rows", "sort_rows", "sort_rows_wide",
-         "compact_runs"),
+        ("transport", "deposit_rows", "sort_rows", "compact_runs"),
         ("deposit", "merge_cluster", "merge_fused", "packed_key_lookup_rows",
-         "pad_lookup"), card, wide_per_batch=1, per_batch=DEFAULT_PER_BATCH)
+         "pad_lookup", "sort_rows_wide"), card, live_per_batch=1,
+        per_batch=DEFAULT_PER_BATCH)
     del sim_retry
     sim_fused_wide, _, _ = flagship_simulator(
         "cuda", point_budget=FUSED_WIDE_POINT_BUDGET, **fused_cfg)
@@ -2250,7 +2355,8 @@ def main() -> int:
         sim_tuned, vertices, momenta, "default at the tuned budgets",
         ("transport", "deposit_rows", "sort_rows", "compact_runs"),
         ("deposit", "merge_cluster", "merge_fused", "packed_key_lookup_rows",
-         "pad_lookup", "sort_rows_wide"), card, per_batch=DEFAULT_PER_BATCH)
+         "pad_lookup", "sort_rows_wide"), card, live_per_batch=1,
+        per_batch=DEFAULT_PER_BATCH)
     print(f"default step at the tuned budgets {tuned}: "
           f"{paths['tuned_step']['ms_per_batch']:.3f} ms/batch, against "
           f"{paths['default']['ms_per_batch']:.3f} at the 10,000-step window"
@@ -2299,6 +2405,7 @@ def main() -> int:
                 "allocated_bytes")} for key, v in sorts.items()}
             row["launches_by_route"] = {p: paths[p]["routes"]["sort_rows"]
                                         for p in paths}
+            row["live_route"] = lives
         if name == "deposit_rows":
             row.update(synthetic_ms=deposit_rows["synthetic"]["ms"],
                        synthetic_plain_ms=deposit_rows["synthetic"]["plain_ms"],

@@ -8,9 +8,10 @@ the JAX package (the card's Python needs neither jax nor h5py for it):
 
 Bounds: K1 alive flags exact, positions within 1e-6 m, |dKE| within
 1e-4 MeV (tests/test_transport_pallas.py); K2 and K7 (one quad kernel), K3
-(both routes), K6, the deposit-rows kernel and the run-end compaction
-bit-exact; K5 (both routes) key2 and n_uniq exact and c2 bit-exact; the
-Spyral assembly
+(its three routes: the live route of the default step's merge sort
+against torch.sort of the whole row), K6, the deposit-rows kernel and the
+run-end compaction bit-exact; K5 (both routes) key2 and n_uniq exact and
+c2 bit-exact; the Spyral assembly
 (``csrc/assemble.cu``) bit-exact against its plain version and the C++
 library. A wrapper given a CUDA tensor it cannot take raises: nothing
 falls back.
@@ -63,7 +64,10 @@ def _load_cases(name):
 _cases = _load_cases("assemble_cases")
 edge_events, forged_tie, pool = (_cases.edge_events, _cases.forged_tie,
                                  _cases.pool)
-merge_rows = _load_cases("merge_cases").merge_rows
+_merge_cases = _load_cases("merge_cases")
+merge_rows, live_rows = _merge_cases.merge_rows, _merge_cases.live_rows
+LIVE_EDGES, live_plan = _merge_cases.LIVE_EDGES, _merge_cases.live_plan
+CONFIGS = Path(__file__).resolve().parents[1] / "port_bench" / "configs"
 SENT = 2**31 - 1
 
 
@@ -255,6 +259,192 @@ def test_sort_kernel_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError):
         sort_cuda.sort_rows(torch.zeros((8, 2), dtype=torch.int64,
                                         device=cuda_device).t())
+
+
+def _config_step(name, point_budget, monkeypatch):
+    """The first 384 events of the benchmark's configuration ``name`` (its
+    JSON under port_bench/configs, read as data: the detector, the
+    kinematics and its seed, the physics window), sampled by the port's
+    kinematics pipeline and run through the port's default step at
+    ``point_budget``: the rows and prefixes the step hands its merge sort
+    (K3's live route), and the step's outputs."""
+    import json
+
+    from attpc_engine_tpu_torch.kinematics import (
+        Decay,
+        ExcitationGaussian,
+        KinematicsPipeline,
+        KinematicsTargetMaterial,
+        PolarUniform,
+        Reaction,
+    )
+
+    cfg = json.loads((CONFIGS / f"{name}.json").read_text())
+    d, kin, e = cfg["detector"], cfg["kinematics"], cfg["engine"]
+    gas = GasTarget([tuple(c) for c in d["gas_components"]],
+                    float(d["gas_pressure_torr"]), nuclear_map)
+    config = Config(
+        DetectorParams(length=d["length"], efield=d["efield"],
+                       bfield=d["bfield"], mpgd_gain=d["mpgd_gain"],
+                       gas_target=gas, diffusion=d["diffusion"],
+                       fano_factor=d["fano_factor"], w_value=d["w_value"]),
+        ElectronicsParams(**cfg["electronics"]), PadParams())
+    nucleus = lambda za: nuclear_map.get_data(*za)  # noqa: E731
+    steps = [Reaction(*(nucleus(s["reaction"][k]) for k in
+                        ("target", "projectile", "ejectile")))
+             if "reaction" in s else
+             Decay(nucleus(s["decay"]["parent"]),
+                   nucleus(s["decay"]["residual_1"]))
+             for s in kin["steps"]]
+    tm = kin["target_material"]
+    pipe = KinematicsPipeline(
+        steps, [ExcitationGaussian(s["excitation"]["centroid"],
+                                   s["excitation"]["width"])
+                for s in kin["steps"]],
+        [PolarUniform(s["polar"]["min"], s["polar"]["max"])
+         for s in kin["steps"]], kin["beam_energy"],
+        target_material=KinematicsTargetMaterial(
+            gas, tuple(tm["z_range"]), tm["rho_sigma"]), device="cuda")
+    batch = pipe.sample_events(384, int(kin["seed"]))
+    assert bool(batch.accepted.all())
+    vertices = batch.vertices.cpu().numpy()
+    momenta = batch.momenta.cpu().numpy()
+    sim = DetectorSimulator(
+        config, pipe.get_proton_numbers(), pipe.get_mass_numbers(),
+        engine=EngineParams(events_per_batch=384, point_budget=point_budget,
+                            n_time_steps=int(e["n_time_steps"]),
+                            dt=float(e["dt"]),
+                            chunk_steps=int(e["chunk_steps"])),
+        device="cuda")
+    seen = []
+    real = deposition.sort_rows_live
+
+    def spy(rows, lanes):
+        seen.append((rows.clone(), lanes.clone()))
+        return real(rows, lanes)
+
+    monkeypatch.setattr(deposition, "sort_rows_live", spy)
+    out = sim.simulate_batch(vertices, momenta, seed=5, assemble=False)
+    monkeypatch.setattr(deposition, "sort_rows_live", real)
+    return sim, (vertices, momenta), seen, out
+
+
+def _cell_like(w, lanes, seed):
+    """int64 rows [len(lanes), w] on the card, merge-like inside each
+    prefix (a fifth of the lanes dead), the sentinel past it."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    lanes = lanes.to("cuda")
+    shape = (len(lanes), w)
+    inside = torch.arange(w, device="cuda")[None, :] < lanes[:, None]
+    live = inside & (torch.rand(shape, generator=g, device="cuda") > 0.2)
+    key = torch.randint(0, 2**23, shape, generator=g, device="cuda")
+    q = torch.rand(shape, generator=g, device="cuda") * 100
+    return sort_cuda.pack64(torch.where(live, key, SENT).to(torch.int32),
+                            torch.where(live, q, 0.0))
+
+
+@pytest.mark.parametrize("name,point_budget", [
+    ("c16dd_d2_184MeV", 1920), ("b10_3he_chain_24MeV", 8192)])
+def test_live_sort_of_the_default_steps_rows(cuda_device, monkeypatch, name,
+                                             point_budget):
+    """K3's live route on the rows the default step hands it for the
+    first 384 events of each benchmark configuration at its tuned point
+    budget ([384, 192000] and [384, 819200]): the rows of torch.sort of
+    the whole row (the plain version) bit for bit, one live call
+    (launches and launches_live each up by one, no generic route), and the
+    step's merged cloud, converted rows and metadata are those of the same
+    step with its merge sort done by torch.sort at full width."""
+    sim, (vertices, momenta), seen, out = _config_step(name, point_budget,
+                                                       monkeypatch)
+    ((rows, lanes),) = seen
+    assert rows.shape == (384, point_budget * 100)
+    before = (sort_cuda.launches, sort_cuda.launches_live,
+              sort_cuda.launches_cluster, sort_cuda.launches_wide)
+    got = sort_cuda.sort_rows_live(rows.clone(), lanes)
+    after = (sort_cuda.launches, sort_cuda.launches_live,
+             sort_cuda.launches_cluster, sort_cuda.launches_wide)
+    assert tuple(a - b for a, b in zip(after, before)) == (1, 1, 0, 0)
+    assert torch.equal(got, sort_cuda.sort_rows_plain(rows))
+    sites = sort_cuda.live_sites(lanes.cpu().numpy())
+    assert sum(sites.values()) == 384
+    if point_budget == 8192:
+        assert sites.get("wide", 0) > 0  # the chain's widest events
+
+    monkeypatch.setattr(deposition, "sort_rows_live",
+                        lambda r, la: sort_cuda.sort_rows_plain(r))
+    full = sim.simulate_batch(vertices, momenta, seed=5, assemble=False)
+    for key in ("pads", "tbs_i", "charges", "labels", "events", "counts",
+                "n_points", "packed", "spyral_counts", "meta_i32"):
+        a, b = out[key], full[key]
+        if a.is_floating_point():
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), key
+
+
+@pytest.mark.parametrize("w", [192000, 512000, 819200])
+def test_live_sort_edge_rows(cuda_device, w):
+    """K3's live route against torch.sort of the whole row on 384 rows:
+    the edge prefixes (0, 1, a cluster of 1, 4, 8 and 16 CTAs' 13,360
+    lanes and one either side, the whole row) with scattered sentinels,
+    none, only sentinels and equal keys of different charges, then
+    merge-like rows of random prefixes; at c16dd's and the chain's widths
+    and at point budget 5,120, whose fourth merge pass needs more split
+    entries than its first. Allocates no more than one scratch like the
+    rows and its small tables where a prefix can pass 8 CTAs, else
+    < 1 MiB."""
+    edges = [v for v in LIVE_EDGES if v <= w] + [w]
+    parts = [live_rows(w, edges, case, seed=w)
+             for case in ("scattered", "no_sentinel", "all_sentinel",
+                          "equal_keys")]
+    x = torch.cat(parts).to(cuda_device)
+    lanes = torch.tensor(edges * len(parts), dtype=torch.int32)
+    n = 384 - len(lanes)
+    extra = torch.randint(0, w + 1, (n,), generator=torch.Generator()
+                          .manual_seed(w), dtype=torch.int32)
+    x = torch.cat([x, _cell_like(w, extra, w)])
+    lanes = torch.cat([lanes, extra]).to(cuda_device)
+    ref = sort_cuda.sort_rows_plain(x)
+    torch.cuda.synchronize()
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = sort_cuda.sort_rows_live(x, lanes)
+    more = torch.cuda.max_memory_allocated() - allocated
+    assert got.data_ptr() == x.data_ptr()  # in place
+    assert torch.equal(got, ref)
+    wide = w > sort_cuda.LIVE_CLUSTER_LANES
+    assert more <= (x.numel() * 8 if wide else 0) + (1 << 20)
+
+
+def test_live_sort_launches_by_route(cuda_device, monkeypatch):
+    """The live route launches, on a stream, the cluster routes a row of
+    the width could need and, past 8 CTAs, the wide route's chunk sort
+    and its merge passes (a partition and a tile kernel each), each
+    launch's kernel named as K3's kernels are (radix_cluster_kernel,
+    merge_partition_kernel, merge_tile_kernel), so that the benchmark's
+    share of K3's bound times every launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for w in (100000, 192000, 819200):
+        plan = live_plan(w)
+        n_launches = sum(1 + 2 * p.passes for p in plan)
+        lanes = torch.full((8,), w // 2, dtype=torch.int32)
+        x = _cell_like(w, lanes, 3)
+        sort_cuda.sort_rows_live(x.clone(), lanes.to(cuda_device))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            sort_cuda.sort_rows_live(x.clone(), lanes.to(cuda_device))
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and "kernel" in e.name.lower()]
+        ours = [n for n in names if "radix_cluster_kernel" in n
+                or "merge_partition_kernel" in n or "merge_tile_kernel" in n]
+        clone = [n for n in names if n not in ours]
+        assert len(ours) == n_launches, names
+        assert not clone, names
+        assert [p.site for p in plan] == ["cluster-1", "cluster-2",
+                                          "cluster-4", "cluster-8"] + (
+            ["wide"] if w > sort_cuda.LIVE_CLUSTER_LANES else [])
 
 
 def test_deposit_kernel_matches_plain(cuda_device):

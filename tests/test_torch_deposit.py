@@ -33,7 +33,7 @@ from attpc_engine_tpu.detector.deposition import event_keys
 from attpc_engine_tpu_torch.detector import deposit_cuda
 from attpc_engine_tpu_torch.detector import deposition as D
 from attpc_engine_tpu_torch.detector.sort_cuda import pack64
-from tests.test_torch_host import jax_config
+from tests.test_torch_host import jax_config, torch_config
 
 SENT = 2**31 - 1
 
@@ -205,6 +205,48 @@ def test_deposit_and_merge_matches_jax(point_budget):
                                atol=1e-2)
     assert int(got["counts"].sum()) > 0
     assert (int(got["pool_overflow"]) > 0) == (point_budget == 24)
+
+
+@pytest.mark.parametrize("point_budget", [128, 24])
+def test_merge_rows_past_the_point_prefix_are_sentinels(point_budget,
+                                                        monkeypatch):
+    """The live merge sort's contract (``sort_cuda.sort_rows_live``): the
+    default step hands it, as each event's prefix, min(n_points,
+    point_budget) * 100 lanes, and every lane of its rows at or past that
+    is pack64(KEY_SENTINEL, 0.0); at point budget 24 events overflow
+    (n_points > point_budget), and their prefix is the whole row."""
+    seen = []
+    real = D.sort_rows_live
+
+    def spy(rows, lanes):
+        seen.append((rows.clone(), lanes.clone()))
+        return real(rows, lanes)
+
+    monkeypatch.setattr(D, "sort_rows_live", spy)
+    config = torch_config()
+    dev = config.device_arrays()
+    e, k, t = 3, 2, 40
+    positions, _, valid, labels = _tracks(e, k, t, 7)
+    electrons = np.random.default_rng(5).integers(1, 500, (t, e * k))
+    out = D.deposit_and_merge(
+        torch.from_numpy(positions), torch.from_numpy(electrons).int(),
+        torch.from_numpy(valid), torch.from_numpy(labels),
+        torch.as_tensor(dev["pad_table"]), grid_lo_mm=dev["grid_lo_mm"],
+        grid_n_mm=dev["grid_n_mm"], diffusion=config.det_params.diffusion,
+        efield=config.det_params.efield,
+        drift_velocity=config.drift_velocity, micromegas_edge=10.0,
+        length=1.0, mpgd_gain=1.0, n_events=e, tracks_per_event=k,
+        point_budget=point_budget, uniq_budget=4096)
+    ((rows, lanes),) = seen
+    n_points = out["n_points"]
+    assert lanes.dtype == torch.int32 and torch.equal(
+        lanes, torch.clamp(n_points, max=point_budget) * 100)
+    assert rows.shape == (e, point_budget * 100)
+    past = torch.arange(rows.shape[1])[None, :] >= lanes[:, None]
+    assert bool((rows[past] == SENT << 32).all())
+    live = (rows >> 32) != SENT
+    assert torch.equal(live.any(dim=1), n_points > 0)
+    assert bool((n_points > point_budget).any()) == (point_budget == 24)
 
 
 # --- the deposit rows ------------------------------------------------------ #

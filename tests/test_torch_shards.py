@@ -44,6 +44,7 @@ from attpc_engine_tpu_torch.detector import (
     ElectronicsParams,
     EngineParams,
     PadParams,
+    sort_cuda,
 )
 from attpc_engine_tpu_torch.detector.simulator import _shards, run_reader
 from attpc_engine_tpu_torch.nuclear import GasTarget
@@ -358,9 +359,15 @@ def test_one_device_keeps_its_names():
                      "h5py-write", "step.prepare", "step.transport",
                      "step.fano", "step.deposit", "step.merge",
                      "step.convert"}
-    assert sites == {("syncs", "transport.window"), ("syncs", "pull-meta")}
+    # the merge sort's rows by route, as the events' prefixes fall
+    routes = {site for name, site in sites if name == "merge_sort.rows"}
+    assert routes and routes <= {"empty", "wide"} | {
+        f"cluster-{n}" for n in sort_cuda.CLUSTER_SIZES}
+    assert sites - {("merge_sort.rows", r) for r in routes} == {
+        ("syncs", "transport.window"), ("syncs", "pull-meta")}
     assert counters == {"syncs", "pinned_allocs", "pinned_bytes", "retries",
-                        "batches"}
+                        "batches", "merge_sort.lanes",
+                        "merge_sort.width_lanes", "merge_sort.rows"}
     assert {s.thread for s in rec.spans} == {"MainThread", "spyral-writer"}
 
 

@@ -31,7 +31,14 @@ from attpc_engine_tpu_torch.detector.deposition import (
     _run_sums,
 )
 from attpc_engine_tpu_torch.detector.sort_cuda import pack64, unpack64
-from tests.merge_cases import merge_rows
+from tests.merge_cases import (
+    LIVE_CASES,
+    LIVE_EDGES,
+    live_merge_passes,
+    live_plan,
+    live_rows,
+    merge_rows,
+)
 
 
 def _pairs(e, w, seed, sentinel_share=0.3):
@@ -361,6 +368,161 @@ def test_wide_merge_path_partition_and_ties(case):
     assert torch.equal(rows, torch.sort(x, dim=1).values)
 
 
+SENT_ELEM = KEY_SENTINEL << 32
+
+
+def _sort_segment(src, dst, s0, s1, n_cta, chunk):
+    """One cluster of the live kernel (csrc/sort_cluster.cu ``sort_live``)
+    on lanes [s0, s1) of a numpy row: CTA m loads its even share of them
+    and keeps what is not the sentinel, the N kept elements are sorted (the
+    passes; equal elements are equal bits) and spread, CTA m storing
+    sorted positions [m * cl, m * cl + n_m), cl = max(2, ceil(N / n_cta)),
+    then the CTAs write the sentinel over [N, s1 - s0) in even shares.
+    Every lane of the segment is written exactly once, and no CTA holds
+    more than ``chunk`` elements."""
+    length = s1 - s0
+    load = -(-length // n_cta)
+    assert load <= chunk
+    held = []
+    for m in range(n_cta):
+        seg = src[s0 + min(m * load, length):s0 + min((m + 1) * load, length)]
+        held.append(seg[seg != SENT_ELEM])
+    n_live = sum(len(h) for h in held)
+    cl = max(2, -(-n_live // n_cta))
+    assert cl <= chunk
+    srt = np.sort(np.concatenate(held))
+    out = np.full(length, -1, dtype=np.int64)
+    writes = np.zeros(length, dtype=np.int64)
+    for m in range(n_cta):
+        n_m = max(0, min(cl, n_live - m * cl))
+        out[m * cl:m * cl + n_m] = srt[m * cl:m * cl + n_m]
+        writes[m * cl:m * cl + n_m] += 1
+    rest = length - n_live
+    per = -(-rest // n_cta)
+    for m in range(n_cta):
+        f0 = min(rest, m * per)
+        f1 = min(rest, f0 + per)
+        out[n_live + f0:n_live + f1] = SENT_ELEM
+        writes[n_live + f0:n_live + f1] += 1
+    assert (writes == 1).all()
+    dst[s0:s1] = out
+
+
+def _live_emulated(x, lanes):
+    """K3's live route on numpy rows [E, W], as its launches split the work
+    (``merge_cases.live_plan``): each cluster launch takes the rows whose
+    prefix lies in (lo, hi], the cluster-1 launch lists the wide rows; the
+    wide launch sorts each listed row's chunks of CTA_CAPACITY lanes into
+    the buffer that the parity of the row's merge passes gives, and merge
+    pass j joins pairs of runs of CTA_CAPACITY << j lanes over each prefix
+    with more than j passes, from one buffer into the other (each run
+    must be sorted when it is read). Returns the rows and each row's sites."""
+    e, w = x.shape
+    cap = sort_cuda.CTA_CAPACITY
+    rows = x.copy()
+    scratch = np.full_like(rows, -1)
+    sites = [[] for _ in range(e)]
+    wide = []
+    for launch in live_plan(w):
+        if launch.site != "wide":
+            for r in range(e):
+                if (launch.site == "cluster-1"
+                        and lanes[r] > sort_cuda.LIVE_CLUSTER_LANES):
+                    wide.append(r)
+                if launch.lo < lanes[r] <= launch.hi:
+                    sites[r].append(launch.site)
+                    _sort_segment(rows[r], rows[r], 0, lanes[r],
+                                  launch.n_cta, launch.chunk)
+            continue
+        for r in wide:
+            sites[r].append("wide")
+            dst = scratch if live_merge_passes(lanes[r]) % 2 else rows
+            for s0 in range(0, lanes[r], cap):
+                _sort_segment(rows[r], dst[r], s0, min(s0 + cap, lanes[r]), 1,
+                              launch.chunk)
+        for j in range(launch.passes):
+            run = cap << j
+            for r in wide:
+                passes = live_merge_passes(lanes[r])
+                if j >= passes:
+                    continue
+                src, dst = ((scratch, rows) if (passes - j) % 2
+                            else (rows, scratch))
+                for a in range(0, lanes[r], 2 * run):
+                    b, z = min(a + run, lanes[r]), min(a + 2 * run, lanes[r])
+                    for lo, hi in ((a, b), (b, z)):
+                        assert (np.diff(src[r, lo:hi]) >= 0).all()
+                    dst[r, a:z] = np.sort(src[r, a:z])
+    return rows, sites
+
+
+def _site(v):
+    """The one site ``sort_cuda.live_sites`` gives a prefix of v lanes."""
+    (site,) = sort_cuda.live_sites([v])
+    return site
+
+
+@pytest.mark.parametrize("case", LIVE_CASES)
+@pytest.mark.parametrize("w", [192000, 819200])
+def test_live_route_emulated_is_the_full_sort(w, case):
+    """K3's live route, emulated launch by launch, gives torch.sort's rows
+    bit for bit, on c16dd's and the chain's merge widths, for prefixes of
+    0 lanes, of the whole row, and at 1, 4, 8 and 16 CTAs' 13,360 lanes and
+    one either side, with scattered sentinels, none, only sentinels, or
+    equal keys of different charges; each row takes the one route
+    ``sort_cuda.live_sites`` names (none for an empty prefix), and the
+    plain version is torch.sort of the whole row."""
+    lanes = np.array([v for v in LIVE_EDGES if v <= w] + [w], dtype=np.int64)
+    x = live_rows(w, lanes, case)
+    ref = sort_cuda.sort_rows_plain(x)
+    got, sites = _live_emulated(x.numpy(), lanes)
+    assert np.array_equal(got, ref.numpy())
+    assert sites == [[] if v == 0 else [_site(v)] for v in lanes]
+    plain = sort_cuda.sort_rows_live(x, torch.from_numpy(lanes).int())
+    assert torch.equal(plain, ref)
+    counted = sort_cuda.live_sites(lanes)
+    assert counted == {s: [_site(v) for v in lanes].count(s) for s in counted}
+    assert sum(counted.values()) == len(lanes)
+
+
+@pytest.mark.parametrize("w", [1, 100, 13360, 13361, 26721, 53441, 192000,
+                               213760, 213761, 819200, 1638400])
+def test_live_plan_takes_each_prefix_once(w):
+    """The live route's launches over rows of ``w``: every cluster route a
+    prefix of at most ``w`` lanes could need, up to 8 CTAs, each of even
+    chunks that hold every share of the prefixes it takes, within a
+    block's shared memory, and the wide route exactly where a prefix can
+    pass 8 CTAs, with the passes of the widest prefix (the launches as
+    ``merge_cases.live_plan`` emulates them). Every prefix in (0, w] is
+    taken by exactly one launch, the one ``sort_cuda.live_sites`` names; 0
+    by none."""
+    plan = live_plan(w)
+    cap = sort_cuda.CTA_CAPACITY
+    assert sort_cuda.LIVE_CLUSTER_SIZES == (1, 2, 4, 8)
+    assert [p.site for p in plan if p.site != "wide"] == [
+        f"cluster-{n}" for n in sort_cuda.LIVE_CLUSTER_SIZES
+        if (n // 2) * cap < w or n == 1]
+    assert (plan[-1].site == "wide") == (w > sort_cuda.LIVE_CLUSTER_LANES)
+    prefixes = {0, 1, w, w - 1, *(v for v in LIVE_EDGES if v <= w)}
+    prefixes |= set(np.random.default_rng(w).integers(0, w + 1, 200).tolist())
+    for v in sorted(prefixes):
+        takers = [p for p in plan
+                  if (p.lo < v <= p.hi if p.site != "wide" else p.lo < v)]
+        assert [p.site for p in takers] == ([] if v <= 0 else
+                                            [_site(v)])
+        for p in takers:
+            share = cap if p.site == "wide" else -(-v // p.n_cta)
+            assert share <= p.chunk and p.chunk % 2 == 0
+            assert 16 * p.chunk + sort_cuda.FIXED_BYTES <= (
+                sort_cuda.SHARED_BYTES)
+            chunks = -(-v // cap)
+            passes = live_merge_passes(v)
+            assert 2**passes >= chunks > 2 ** (passes - 1) or chunks == 1
+            if p.site == "wide":
+                assert p.passes == live_merge_passes(w) >= passes
+    assert sort_cuda.live_sites([0, 0]) == {"empty": 2}
+
+
 def test_sort_route_constants_match_the_kernel_source():
     """The wrapper's shared-memory arithmetic is the kernel's."""
     src = (Path(sort_cuda.__file__).resolve().parents[1] / "csrc"
@@ -379,3 +541,10 @@ def test_sort_route_constants_match_the_kernel_source():
     warps = sort_cuda.CTA_THREADS // 32
     assert sort_cuda.FIXED_BYTES == (warps * sort_cuda.DIGITS * 2
                                      + 2 * sort_cuda.DIGITS * 4 + int(tail))
+    live = (Path(sort_cuda.__file__).resolve().parents[1] / "csrc"
+            / "sort_live.cuh").read_text()
+    assert int(re.search(r"constexpr int kLiveChunk = (\d+);", live)[1]) == (
+        sort_cuda.CTA_CAPACITY)
+    ctas = re.search(r"constexpr int64_t kLiveClusterLanes = "
+                     r"(\d+) \* \(int64_t\)kLiveChunk;", live)[1]
+    assert int(ctas) * sort_cuda.CTA_CAPACITY == sort_cuda.LIVE_CLUSTER_LANES

@@ -15,6 +15,8 @@ What must hold:
   on Kineto's time base (Unix seconds rounded down to a multiple of
   7,889,238), which reproduces the file's ``baseTimeNanoseconds``;
 - a run forced into one "point" overflow counts one retry;
+- the merge sort's counters ("merge_sort.*") are the prefixes the steps
+  handed K3's live route, and the routes those prefixes take;
 - ``run_reader``'s result and the run manifest hold the counters and spans.
 """
 
@@ -34,6 +36,7 @@ from attpc_engine_tpu_torch.detector import (
     ElectronicsParams,
     PadParams,
 )
+from attpc_engine_tpu_torch.detector import deposition, sort_cuda
 from attpc_engine_tpu_torch.detector.simulator import run_reader
 from attpc_engine_tpu_torch.nuclear import GasTarget
 from attpc_engine_tpu_torch.utils import profiling
@@ -227,6 +230,37 @@ def test_a_point_overflow_counts_one_retry(tmp_path):
     assert stats["counters"]["retries"] == {"point": 1}
     assert stats["budgets"]["point"] == 512
     assert stats["counters"]["syncs"]["pull-meta"] == 3
+
+
+@pytest.mark.parametrize("merge", ["sorts", "fused"])
+def test_merge_sort_counters_are_the_prefixes_the_sort_took(
+        tmp_path, monkeypatch, merge):
+    """Every step of the default configuration (the retried one included)
+    hands K3's live route each event's prefix; "merge_sort.lanes" is their
+    sum, "merge_sort.width_lanes" the rows' lanes, "merge_sort.rows" the
+    events by the route their prefix takes. The fused merge sorts nothing
+    on that route and counts nothing."""
+    seen = []
+    real = deposition.sort_rows_live
+
+    def spy(rows, lanes):
+        seen.append((rows.shape, lanes.clone()))
+        return real(rows, lanes)
+
+    monkeypatch.setattr(deposition, "sort_rows_live", spy)
+    stats = run(tmp_path, point_budget=256, merge=merge)
+    c = stats["counters"]
+    if merge == "fused":
+        assert not seen and c["merge_sort.lanes"] == 0
+        assert c["merge_sort.width_lanes"] == 0 and c["merge_sort.rows"] == {}
+        return
+    assert len(seen) == 3 and c["retries"] == {"point": 1}
+    lanes = np.concatenate([la.numpy() for _, la in seen])
+    assert c["merge_sort.lanes"] == int(lanes.sum()) > 0
+    assert c["merge_sort.width_lanes"] == sum(e * w for (e, w), _ in seen)
+    assert c["merge_sort.lanes"] < c["merge_sort.width_lanes"]
+    assert c["merge_sort.rows"] == sort_cuda.live_sites(lanes)
+    assert sum(c["merge_sort.rows"].values()) == 12
 
 
 def test_result_and_manifest_hold_counters_and_spans(traced):

@@ -108,6 +108,7 @@ STAGES = {
     (simulator, "fano_noise"): "fano_noise",
     (deposition, "_prefix_sum"): "prefix_sum",
     (deposition, "sort_rows"): "merge_sort",
+    (deposition, "sort_rows_live"): "merge_sort",
     (deposition, "compact_runs"): "compact_runs",
     (deposition, "merge_runs_fused"): "merge_fused",
     (deposition, "deposit_rows"): "deposit_rows",
