@@ -82,8 +82,11 @@ def _new_counters() -> dict:
 class Span:
     """A recorded span: Unix nanoseconds on the profiler's clock, the span
     it ran inside (None at the top of its thread), its batch's first event
-    id, and, for a step stage or a turn on the card, the stream's seconds
-    between its two CUDA events (None until read)."""
+    id, for a step stage or a turn on the card the stream's seconds
+    between its two CUDA events (None until read) and, for a phase or a
+    stage, the clock's readings just before and after its range was
+    entered (``entered_ns``: the profiler stamps the range between them;
+    ``start_ns`` is their middle)."""
 
     name: str
     start_ns: int
@@ -92,6 +95,7 @@ class Span:
     batch: int | None
     thread: str
     device_s: float | None = None
+    entered_ns: tuple[int, int] | None = None
 
 
 @dataclass
@@ -189,8 +193,9 @@ class PhaseTimes:
         a = time.time_ns()
         if rf is not None:
             rf.__enter__()
-        span = Span(name, (a + time.time_ns()) // 2, 0, parent, batch,
-                    threading.current_thread().name)
+        b = time.time_ns()
+        span = Span(name, (a + b) // 2, 0, parent, batch,
+                    threading.current_thread().name, entered_ns=(a, b))
         e0 = dev = None
         if stage:
             card = _CARD.get()

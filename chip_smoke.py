@@ -1284,7 +1284,8 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
     rows bit for bit (that host assembly timed too). Returns the counts,
     the timing and the first batch's merged cloud, meta_i32 and packed
     rows; with ``keep_rows``, also every batch's (packed rows, counts)."""
-    from attpc_engine_tpu_torch.detector.simulator import overflow_kinds
+    from attpc_engine_tpu_torch.detector.simulator import (StepMeta,
+                                                           overflow_kinds)
 
     step_s, asm_s, copy_s, rows, first, kept = [], [], [], 0, None, []
     done = []
@@ -1297,11 +1298,12 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
                                  assemble=False)
         meta = out["meta_i32"].cpu().numpy()
         t1 = time.perf_counter()
-        kinds = overflow_kinds(meta)
+        decoded = StepMeta.decode(meta)
+        kinds = overflow_kinds(decoded)
         if kinds:
             raise AssertionError(f"{label}: overflow at its budgets: "
                                  f"{kinds}")
-        counts = meta[:len(v)]
+        counts = decoded.counts
         total = check_rows(sim, out, len(v))
         torch.cuda.synchronize()
         ta = time.perf_counter()
@@ -1426,22 +1428,23 @@ def check_against_cpu(sim_gpu, vertices, momenta, n: int = 8) -> None:
     positions differ in the last bits and a few pixels change mm cell: per
     event the merged and kept row counts must agree within 2 % and the
     total kept charge within 1 %."""
+    from attpc_engine_tpu_torch.detector.simulator import StepMeta
+
     sim_cpu, _, _ = flagship_simulator("cpu")
     outs = [s.simulate_batch(vertices[:n], momenta[:n], seed=SEED,
                              assemble=False) for s in (sim_gpu, sim_cpu)]
-    metas = [o["meta_i32"].cpu().numpy() for o in outs]
+    metas = [StepMeta.decode(o["meta_i32"].cpu().numpy()) for o in outs]
     charges = []
     for o, meta in zip(outs, metas):
-        total = int(meta[:n].sum())
-        q = o["packed"][:total, 0].cpu().numpy().view(np.float32)
+        q = o["packed"][:meta.kept, 0].cpu().numpy().view(np.float32)
         charges.append(float(q.astype(np.float64).sum()))
     g, c = metas
     rel = lambda a, b: np.abs(a - b) / np.maximum(np.abs(b), 1)  # noqa: E731
-    kept, merged = rel(g[:n], c[:n]), rel(g[2 * n:3 * n], c[2 * n:3 * n])
+    kept, merged = rel(g.counts, c.counts), rel(g.merged, c.merged)
     dq = abs(charges[0] - charges[1]) / charges[1]
-    print(f"card vs CPU plain, {n} events: kept rows {g[:n].tolist()} vs "
-          f"{c[:n].tolist()}; merged {g[2*n:3*n].tolist()} vs "
-          f"{c[2*n:3*n].tolist()}; total charge rel diff {dq:.3g}")
+    print(f"card vs CPU plain, {n} events: kept rows {g.counts.tolist()} vs "
+          f"{c.counts.tolist()}; merged {g.merged.tolist()} vs "
+          f"{c.merged.tolist()}; total charge rel diff {dq:.3g}")
     if kept.max() > 0.02 or merged.max() > 0.02 or dq > 0.01:
         raise AssertionError("the card disagrees with the CPU reference")
 

@@ -886,42 +886,52 @@ def test_run_reader_on_the_card(cuda_device):
     assert kept_gpu > 0 and abs(kept_gpu - kept_cpu) <= 0.02 * kept_cpu
 
 
-def test_host_copies_reuse_buffers_of_two_sizes(cuda_device):
+@pytest.mark.parametrize("n_sources", [1, 2],
+                         ids=["one_source", "two_sources"])
+def test_host_copies_reuse_buffers_of_two_sizes(cuda_device, n_sources):
     """The driver's pinned copies with buffers of two sizes in the pool:
     a copy that fits only the second takes it (once a crash in
-    ``list.remove``), and every copy reads back its rows."""
-    from attpc_engine_tpu_torch.detector.simulator import _HostCopies
+    ``list.remove``), and every copy, of one shard's rows or of two
+    shards' end to end, reads back its rows, each shard's wait counted at
+    its site."""
+    from attpc_engine_tpu_torch.detector.driver import _HostCopies
 
     copies = _HostCopies(cuda_device)
     q = copies.ROWS_QUANTUM
     # the fifth copy finds [q rows, 2q rows] free and takes the second
     rows = [q + 10, 10, 10, q + 10, q + 10, 10]
-    srcs = [torch.full((n, 2), i, dtype=torch.int32, device=cuda_device)
+    sites = [f"copy-finish.card-{k}" for k in range(n_sources)]
+    srcs = [[torch.full((len(part), 2), i, dtype=torch.int32,
+                        device=cuda_device)
+             for part in np.array_split(np.arange(n), n_sources)]
             for i, n in enumerate(rows)]
     pending = None
     for i, src in enumerate(srcs):
-        handle = copies.start(src)
+        handle = copies.start(src, sites)
         if pending is not None:
             j, h = pending
-            assert np.array_equal(copies.finish(h), srcs[j].cpu().numpy())
+            assert np.array_equal(copies.finish(h),
+                                  torch.cat(srcs[j]).cpu().numpy())
         pending = (i, handle)
     j, h = pending
-    assert np.array_equal(copies.finish(h), srcs[j].cpu().numpy())
+    assert np.array_equal(copies.finish(h), torch.cat(srcs[j]).cpu().numpy())
     assert len(copies.free) >= 2
+    assert copies.times.counters["syncs"] == {site: len(rows)
+                                              for site in sites}
 
 
 def test_host_copies_lend_pinned_rows(cuda_device):
     """The driver's copies of assembled rows lent to the writer: the views
     hold the rows, a buffer whose array the writer kept leaves the pool,
     and the next copy into a recycled buffer leaves the kept rows alone."""
-    from attpc_engine_tpu_torch.detector.simulator import _HostCopies
+    from attpc_engine_tpu_torch.detector.driver import _HostCopies
 
     copies = _HostCopies(cuda_device)
     kept = []
     srcs = [torch.full((1000, 8), float(i), dtype=torch.float64,
                        device=cuda_device) for i in range(4)]
     for i, src in enumerate(srcs):
-        handle = copies.start(src)
+        handle = copies.start([src], ["copy-finish"])
 
         def use(rows, i=i):
             assert rows.shape == (1000, 8) and (rows == i).all()

@@ -44,7 +44,9 @@ from attpc_engine_tpu_torch.detector import (
     run_simulation,
     simulate,
 )
+from attpc_engine_tpu_torch.detector.driver import _HostCopies, _round_up
 from attpc_engine_tpu_torch.detector import simulator as tsimulator
+from attpc_engine_tpu_torch.detector.simulator import StepMeta, overflow_kinds
 from attpc_engine_tpu_torch.io.kinematics_file import KinematicsWriter
 from tests.test_torch_host import DET, ELEC, torch_config
 
@@ -152,7 +154,7 @@ def _jax_rule(meta: np.ndarray, n: int, eb: int, engine: EngineParams,
               pinned_steps: int) -> dict:
     """The JAX driver's retightening (simulator.py:1415-1430) of one
     batch's meta_i32 in the port's layout (stride n)."""
-    r = tsimulator._round_up
+    r = _round_up
     return {
         "point": min(engine.point_budget, r(meta[n:2 * n].max() * 1.3, 64)),
         "uniq": min(engine.uniq_budget, r(meta[-1] * 1.3, 1024)),
@@ -197,6 +199,60 @@ def test_tuned_budgets_follow_the_jax_driver(kine, tmp_path, stop_event):
     assert rule["steps"] == 500 and rule["point"] < engine.point_budget
     assert {k: stats["budgets"][k] for k in rule} == rule
     assert stats["budgets"]["cloud"] == jb["cloud"] == engine.cloud_cap
+
+
+def test_step_meta_reads_the_layout_of_finish():
+    """``StepMeta.decode`` reads a CPU batch's meta_i32 as ``_finish`` lays
+    it out (each event's kept, point and merged counts, then the out, uniq
+    and point overflows, steps_alive and uniq_max), ``join`` gives two
+    shards' metadata as the whole batch's, and ``overflow_kinds`` names
+    each of its five kinds from the fields, or none."""
+    sim = DetectorSimulator(torch_config(), Z, A, engine=_engine(),
+                            device="cpu")
+    v, m = SMOKE["vertices"][:4], SMOKE["momenta"][:4]
+
+    def step(lo=0, hi=4, **budgets):
+        out = sim.simulate_batch(v[lo:hi], m[lo:hi], seed=SEED,
+                                 event_start=lo, assemble=False,
+                                 compact=True, **budgets)
+        meta = StepMeta.decode(out["meta_i32"].numpy(),
+                               int(out["cloud_overflow"]))
+        return out, meta
+
+    for budgets in ({}, dict(point_budget=64, uniq_budget=256,
+                             out_budget=16, cloud_cap=16, n_steps=250)):
+        out, meta = step(**budgets)
+        assert len(meta.counts) == 4
+        np.testing.assert_array_equal(meta.counts,
+                                      out["spyral_counts"].numpy())
+        np.testing.assert_array_equal(meta.n_points, out["n_points"].numpy())
+        assert meta.kept == int(out["spyral_counts"].sum()) > 0
+        assert (meta.out_overflow, meta.uniq_overflow, meta.point_overflow,
+                meta.uniq_max, meta.cloud_overflow) == tuple(
+            int(out[k]) for k in ("spyral_overflow", "uniq_overflow",
+                                  "pool_overflow", "uniq_max",
+                                  "cloud_overflow"))
+    # the small budgets overflowed every pool; the probe's 250 steps held
+    # live tracks
+    assert overflow_kinds(meta, 250, 1000) == {
+        "point": meta.point_overflow, "uniq": meta.uniq_overflow,
+        "out": meta.out_overflow, "cloud": meta.cloud_overflow,
+        "steps": 250}
+    assert meta.steps_alive == 250 and min(
+        meta.point_overflow, meta.uniq_overflow, meta.out_overflow,
+        meta.cloud_overflow) > 0
+    out, meta = step()
+    assert overflow_kinds(meta, 1000, 1000) == {}
+    assert overflow_kinds(meta) == {} and 250 < meta.steps_alive < 1000
+    # the merged counts are the merged cloud's before its pool
+    merged = sim.simulate_batch(v, m, seed=SEED, assemble=False)["counts"]
+    np.testing.assert_array_equal(meta.merged, merged.numpy())
+    joined = StepMeta.join([step(0, 2)[1], step(2, 4)[1]])
+    for name in ("counts", "n_points", "merged"):
+        np.testing.assert_array_equal(getattr(joined, name),
+                                      getattr(meta, name))
+    assert (joined.steps_alive, joined.uniq_max) == (meta.steps_alive,
+                                                     meta.uniq_max)
 
 
 def test_resume_off_the_grid_reproduces_one_shot(kine, tmp_path):
@@ -375,7 +431,7 @@ def test_host_copies_take_a_free_buffer_by_position():
     sizes free, taking the second once raised in ``list.remove``, which
     compares tensors elementwise (a driver run on the card of 16 batches
     crashed so)."""
-    copies = tsimulator._HostCopies(torch.device("cpu"))
+    copies = _HostCopies(torch.device("cpu"))
     small, large, other = (torch.zeros(65536, 2), torch.zeros(131072, 2),
                            torch.zeros(65536, 2))
     copies.free = [small, large, other]
@@ -390,7 +446,7 @@ def test_host_copies_match_the_sources_type_and_row_shape():
     """With ``like``, the pool hands out only a buffer of the source's type
     and row shape (the driver pools f64 Spyral rows and int64 labels side
     by side); without it, any buffer of enough rows."""
-    copies = tsimulator._HostCopies(torch.device("cpu"))
+    copies = _HostCopies(torch.device("cpu"))
     labels, rows = torch.zeros(65536, dtype=torch.int64), torch.zeros(
         65536, 8, dtype=torch.float64)
     copies.free = [labels, rows]
@@ -414,7 +470,7 @@ def test_host_copies_lend_keeps_a_buffer_the_writer_kept():
         def synchronize(self):
             pass
 
-    copies = tsimulator._HostCopies(torch.device("cpu"))
+    copies = _HostCopies(torch.device("cpu"))
     copies.cuda = True
     bufs = [torch.arange(10.0).reshape(5, 2), torch.arange(8).reshape(8, 1)]
     seen, kept = [], []
@@ -423,21 +479,58 @@ def test_host_copies_lend_keeps_a_buffer_the_writer_kept():
         seen.append((rows.shape, labels.shape, float(rows.sum())))
         kept.append(labels[1:])  # a view of the second array
 
-    copies.lend([(bufs[0], 3, Done()), (bufs[1], 4, Done())], use)
+    copies.lend([(bufs[0], 3, [("copy-finish", Done())]),
+                 (bufs[1], 4, [("copy-finish", Done())])], use)
     assert seen == [((3, 2), (4, 1), 15.0)]
     assert [id(b) for b in copies.free] == [id(bufs[0])]
     assert kept[0][:, 0].tolist() == [1, 2, 3]
     copies.free = []
-    copies.lend([(bufs[0], 5, Done()), (bufs[1], 8, Done())],
+    copies.lend([(bufs[0], 5, [("copy-finish", Done())]),
+                 (bufs[1], 8, [("copy-finish", Done())])],
                 lambda rows, labels: None)
     assert [id(b) for b in copies.free] == [id(bufs[0]), id(bufs[1])]
+
+
+@pytest.mark.parametrize("n_sources", [1, 3],
+                         ids=["one_source", "three_sources"])
+def test_host_copies_start_puts_the_sources_end_to_end(n_sources):
+    """``start`` over one shard's rows or several shards': one handle, whose
+    buffer holds the sources end to end and whose ``finish`` waits for
+    each shard's copy, counting a ``syncs`` at that shard's site, then
+    gives back the rows and frees the buffer (the pinned path's
+    bookkeeping, its copies made on CPU buffers); on the CPU the rows of
+    the sources joined."""
+
+    class Done:
+        def synchronize(self):
+            pass
+
+    srcs = [torch.full((10 + k, 2), k, dtype=torch.int32)
+            for k in range(n_sources)]
+    sites = [f"copy-finish.card-{k}" for k in range(n_sources)]
+    joined = torch.cat(srcs).numpy()
+    copies = _HostCopies(torch.device("cpu"))
+    np.testing.assert_array_equal(
+        copies.finish(copies.start(srcs, sites)), joined)
+
+    copies.cuda = True
+    buf = torch.zeros(65536, 2, dtype=torch.int32)
+    copies.free = [buf]
+    copies._copy = lambda b, at, src: (
+        b[at:at + src.shape[0]].copy_(src), Done())[1]
+    handle = copies.start(srcs, sites)
+    assert handle[0] is buf and handle[1] == len(joined)
+    assert copies.free == [] and copies.times.counters["syncs"] == {}
+    np.testing.assert_array_equal(copies.finish(handle), joined)
+    assert copies.times.counters["syncs"] == {site: 1 for site in sites}
+    assert [id(b) for b in copies.free] == [id(buf)]
 
 
 def test_host_copies_pool_under_two_threads():
     """The pool's free list is taken on the main thread and refilled on the
     writer thread: under a short switch interval, eight threads taking and
     returning four buffers never hold one buffer twice."""
-    copies = tsimulator._HostCopies(torch.device("cpu"))
+    copies = _HostCopies(torch.device("cpu"))
     copies.free = [torch.zeros(65536, 2) for _ in range(4)]
     held, guard, errors = set(), threading.Lock(), []
 

@@ -46,7 +46,8 @@ from attpc_engine_tpu_torch.detector import (
     PadParams,
     sort_cuda,
 )
-from attpc_engine_tpu_torch.detector.simulator import _shards, run_reader
+from attpc_engine_tpu_torch.detector.driver import _shards
+from attpc_engine_tpu_torch.detector.simulator import run_reader
 from attpc_engine_tpu_torch.nuclear import GasTarget
 from attpc_engine_tpu_torch.utils import profiling
 

@@ -491,7 +491,7 @@ def main() -> int:
     print(f"step wall {1e3 * wall:.3f} ms; kernel device time "
           f"{dev_us / 1e3:.3f} ms; device idle share "
           f"{max(0.0, 1 - dev_us / 1e6 / wall):.3f}; steps_alive "
-          f"{int(meta[-2])}")
+          f"{simulator.StepMeta.decode(meta).steps_alive}")
     print("device span by stage (ms; deposit_and_merge holds deposit_rows, "
           "merge_sort, compact_runs, prefix_sum and merge_fused):")
     for e in events:
