@@ -808,7 +808,10 @@ def run_simulation(
     "merge_sort.width_lanes", the rows' lanes (point_budget * 100 an
     event), and "merge_sort.rows", the events by the route their prefix
     takes on the card (``sort_cuda.live_sites``: "cluster-1" ...
-    "cluster-8", "wide", "empty").
+    "cluster-8", "wide", "empty"); "fano.draws", each step's Fano draws
+    (steps x events x tracks) by where they were made: "kernel"
+    (``fano_cuda``, on the card) or "plain" (``fano_noise``, or the
+    caller's noise).
 
     "spans", while a torch profiler records (``utils.trace_to``; empty
     without one): each span's host seconds, count and, for a step stage

@@ -15,7 +15,8 @@ here too. All run on the card unless the caller passes ``device="cpu"``,
 which runs the kernels' plain PyTorch versions.
 
     integrate_tracks (transport.py)       [E*K] tracks, RK4 windows
- -> generate_electrons (deposition.py)    Fano-smeared counts
+ -> fano_electrons_cuda (fano_cuda.py)    Fano draws and smeared counts
+    / generate_electrons (deposition.py)  (the CPU, or noise given)
  -> deposit_and_merge (deposition.py)     diffusion mesh + (pad, tb) merge
  -> _convert_to_spyral (this file)        ADC threshold, z-order, pool
  -> assemble_device (assemble_cuda.py)    wiggle, exact z order, columns
@@ -46,6 +47,7 @@ from .deposition import (
 )
 from . import assemble_cuda
 from .assemble import AssembleTables
+from .fano_cuda import fano_electrons_cuda
 from .parameters import PAD_ID_SENTINEL, PAD_TABLE_NX, PAD_TABLE_NY, Config
 from .response import get_response
 from .sort_cuda import live_sites, sort_rows
@@ -308,12 +310,22 @@ class DetectorSimulator:
             # window from it; kept in meta_i32)
             steps_alive = alive.any(dim=1).sum(dtype=torch.int32)
         with stage("step.fano"):
-            if noise is None:
-                noise = fano_noise(seed, event_start, e, k, n_steps, chunk,
-                                   device=vg.device)
-            electrons = generate_electrons(
-                dke, noise.to(vg.device), dp.w_value, dp.fano_factor
-            )
+            # on the card the draws and counts are one kernel; given noise
+            # (the tests' JAX draws) and the CPU take the plain version
+            if noise is None and vg.is_cuda:
+                site = "kernel"
+                electrons = fano_electrons_cuda(
+                    dke, seed, event_start, e, k, chunk, dp.w_value,
+                    dp.fano_factor)
+            else:
+                site = "plain"
+                if noise is None:
+                    noise = fano_noise(seed, event_start, e, k, n_steps,
+                                       chunk, device=vg.device)
+                electrons = generate_electrons(
+                    dke, noise.to(vg.device), dp.w_value, dp.fano_factor
+                )
+            count("fano.draws", site, n_steps * b)
             u_cap = min(uniq_budget, point_budget * 100)
             raw = (raw_wiggle(seed, event_start, e, u_cap, device=vg.device)
                    if wiggle else None)

@@ -22,7 +22,11 @@ Spyral assembly (``assemble.cu``) rounds each f64 operation explicitly
 (``__dmul_rn``, ``__dadd_rn``, ``__ddiv_rn``) in the order of the C++
 library it is held to. The deposit-rows kernel rounds each of its few f32 operations explicitly
 (``__fmul_rn``, ``__fadd_rn``), so it would not contract without the flag
-either. The other kernels do integer work only.
+either. The Fano kernel (``fano.cu``) rounds each of its f32 operations
+explicitly, in the order of its plain version (``generate_electrons`` of
+``fano_noise``), and uses IEEE ``logf``, ``sqrtf``, ``sinf`` and ``cosf``,
+the functions PyTorch's CUDA kernels call. The other kernels do integer
+work only.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 SOURCES = ("transport.cu", "deposit.cu", "deposit_rows.cu", "sort_cluster.cu",
            "merge_rows.cu", "merge_fused.cu", "merge_cluster.cu",
-           "compact_runs.cu", "assemble.cu")
+           "compact_runs.cu", "assemble.cu", "fano.cu")
 LIBRARY = "libattpc_kernels-{key}.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -182,6 +186,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.attpc_compact_runs.argtypes = [vp] * 7 + [i32, i64, i32, i32, vp]
     lib.attpc_compact_runs_prefix_stride.argtypes = [i32]
     lib.attpc_compact_runs_prefix_stride.restype = i32
+    u32 = ctypes.c_uint32
+    lib.attpc_fano_electrons.argtypes = (
+        [vp, vp] + [i32] * 4 + [u32] * 4 + [f32] * 3 + [vp])
     f64 = ctypes.c_double
     lib.attpc_assemble_spyral.argtypes = (
         [vp, i64, vp, i32, vp, ctypes.c_uint64] + [vp] * 4 + [i32] + [vp] * 2
@@ -193,7 +200,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                lib.attpc_merge_rows_pass, lib.attpc_sort_rows_live,
                lib.attpc_merge_rows_live, lib.attpc_merge_tail,
                lib.attpc_merge_cluster, lib.attpc_merge_cluster_occupancy,
-               lib.attpc_compact_runs, lib.attpc_assemble_spyral):
+               lib.attpc_compact_runs, lib.attpc_assemble_spyral,
+               lib.attpc_fano_electrons):
         fn.restype = ctypes.c_int
     lib.attpc_error_string.argtypes = [i32]
     lib.attpc_error_string.restype = ctypes.c_char_p

@@ -75,7 +75,8 @@ def profiling() -> bool:
 def _new_counters() -> dict:
     return {"syncs": {}, "pinned_allocs": 0, "pinned_bytes": 0,
             "retries": {}, "batches": 0, "merge_sort.lanes": 0,
-            "merge_sort.width_lanes": 0, "merge_sort.rows": {}}
+            "merge_sort.width_lanes": 0, "merge_sort.rows": {},
+            "fano.draws": {}}
 
 
 @dataclass(eq=False)

@@ -43,7 +43,11 @@ Phases (each raises on failure, and nothing is caught):
    bit-exact against its plain version, one launch counted, nothing
    allocated but its outputs and scratch) on the flagship's own merge rows
    sorted by K3 and on synthetic merge rows at c16dd's [384, 192000] and
-   the chain's [384, 819200]; timed beside its plain version. K3 is held
+   the chain's [384, 819200]; timed beside its plain version. The Fano
+   kernel (``csrc/fano.cu``) at c16dd's and the chain's windows, [2000,
+   768] and [10000, 1536], on deposits with zeros and with half the steps
+   dead: counts bit-exact against ``generate_electrons`` of ``fano_noise``,
+   one launch a call, timed beside them. K3 is held
    on each of its shapes and routes: synthetic
    merge rows and the flagship's own merge rows (taken from a default
    batch) at [384, 102400] and convert rows at [384, 12288] on the cluster
@@ -87,7 +91,8 @@ Phases (each raises on failure, and nothing is caught):
    driven here. K1, the deposit-rows kernel, K3 (twice a batch: the merge
    sort on its live route and the convert sort on its cluster route) and
    the run-end compaction (once a batch) must have been launched by this
-   phase, K2 not, K3's wide route not;
+   phase, K2 not, K3's wide route not; the Fano kernel once a batch on
+   this and every other path of phase 4;
    the rows must be
    well formed; eight events run on the card must agree with the same
    eight run on the CPU through the plain versions. Every batch's rows are
@@ -313,6 +318,9 @@ KERNELS = {
     "assemble": ("assemble_cuda", "launches",
                  "attpc_engine_tpu_torch/csrc/assemble.cu",
                  "attpc_engine_tpu/detector/simulator.py:675", "driver"),
+    # the Fano stage: no TPU kernel, the JAX package's draws in XLA
+    "fano": ("fano_cuda", "launches", "attpc_engine_tpu_torch/csrc/fano.cu",
+             "attpc_engine_tpu/detector/deposition.py:101", "default"),
 }
 # kernels that replace no TPU kernel of their own: what they replace
 HOST_STAGES = {"assemble": "no TPU kernel: the JAX package's host assembly "
@@ -321,7 +329,10 @@ HOST_STAGES = {"assemble": "no TPU kernel: the JAX package's host assembly "
                "compact_runs": "no TPU kernel of its own: the sorts path's "
                                "second call of the sort kernel and the XLA "
                                "passes around it (attpc_engine_tpu/detector/"
-                               "deposition.py _merge_runs)"}
+                               "deposition.py _merge_runs)",
+               "fano": "no TPU kernel: the JAX package's Fano draws, "
+                       "jax.random.normal in XLA (attpc_engine_tpu/detector/"
+                       "deposition.py:101-141)"}
 
 
 # the default step's launches a batch: K3 for the merge sort and the
@@ -956,6 +967,53 @@ def check_sort(x: torch.Tensor, label: str, route: tuple, card: str) -> dict:
             "width": x.shape[1]}
 
 
+def check_fano(tracks: int, n_steps: int, label: str, card: str) -> dict:
+    """The Fano kernel against its plain version on the card at a cell's
+    window, [n_steps, 384 x tracks], on deposits 30 % of them 0 and on
+    the same with the second half of the steps 0 (dead tracks): the
+    counts bit for bit, one launch a call, the event ids wrapping past
+    2^32 and the seed's high word at or above 2^31. Timed beside the plain
+    version and the bound: dke read once, the counts written once."""
+    from attpc_engine_tpu_torch.detector import deposition, fano_cuda
+
+    e, cs, seed, start = BATCH, 500, (0xC0FFEE << 40) | 12345, 2**32 - 100
+    g = torch.Generator(device="cuda").manual_seed(7)
+    live = torch.rand((n_steps, e * tracks), generator=g, device="cuda") * 0.05
+    live[torch.rand(live.shape, generator=g, device="cuda") < 0.3] = 0.0
+    half = live.clone()
+    half[n_steps // 2:] = 0.0
+
+    def kernel(dke):
+        return fano_cuda.fano_electrons_cuda(dke, seed, start, e, tracks, cs,
+                                             34.0, 0.2)
+
+    def plain(dke):
+        noise = deposition.fano_noise(seed, start, e, tracks, n_steps, cs,
+                                      device="cuda")
+        return deposition.generate_electrons(dke, noise, 34.0, 0.2)
+
+    for dke in (live, half):
+        before = fano_cuda.launches
+        got = kernel(dke)
+        if fano_cuda.launches != before + 1:
+            raise AssertionError(f"Fano kernel {label}: launch not counted")
+        bad = int((got != plain(dke)).sum())
+        if bad:
+            raise AssertionError(f"Fano kernel {label}: {bad} of "
+                                 f"{got.numel()} counts differ")
+    ms = cuda_ms(lambda: kernel(live), 20)
+    half_ms = cuda_ms(lambda: kernel(half), 20)
+    plain_ms = cuda_ms(lambda: plain(live), 3)
+    bnd = bound(8 * live.numel())
+    print(f"Fano kernel, {label} [{n_steps}, {e * tracks}]: bit-exact against "
+          f"the plain version; kernel {ms:.4f} ms ({half_ms:.4f} with half "
+          f"the steps dead), plain {plain_ms:.3f} ms, bound "
+          f"{bnd['bound_ms']:.4f} ms [{card}]")
+    return {"max_abs_err": 0, "ms": ms, "half_dead_ms": half_ms,
+            "plain_ms": plain_ms, **bnd, "library_ms": None,
+            "shape": [n_steps, e * tracks]}
+
+
 def check_compact(rows: torch.Tensor, cap: int, label: str,
                   card: str) -> dict:
     """The run-end compaction against its plain version on the card, on
@@ -1341,7 +1399,7 @@ def main_path(sim, vertices, momenta, label: str, must_launch, must_not,
         raise AssertionError(f"{label}: K3 by route {k3}, expected the "
                              f"wide route {wide_per_batch} and the live "
                              f"route {live_per_batch} times a batch")
-    per_batch = {"assemble": 1, **(per_batch or {})}
+    per_batch = {"assemble": 1, "fano": 1, **(per_batch or {})}
     off = {k: launches[k] for k, n in per_batch.items()
            if launches[k] != n * len(step_s)}
     if off:
@@ -1663,11 +1721,11 @@ def check_driver_run(label: str, calls: list, budgets: dict, launches: dict,
 
 
 def check_default_launches(label: str, launches: dict, routes: dict) -> None:
-    """K1, the deposit-rows kernel, K3 (its live route for the merge sort,
-    its cluster route for the convert sort) and the run-end compaction
-    were launched, and no kernel off the default step's path (K2 and K3's
-    wide route among them)."""
-    missing = [k for k in ("transport", "deposit_rows", "sort_rows",
+    """K1, the Fano kernel, the deposit-rows kernel, K3 (its live route for
+    the merge sort, its cluster route for the convert sort) and the run-end
+    compaction were launched, and no kernel off the default step's path
+    (K2 and K3's wide route among them)."""
+    missing = [k for k in ("transport", "fano", "deposit_rows", "sort_rows",
                            "compact_runs") if launches[k] == 0]
     extra = [k for k in ("deposit", "merge_cluster", "merge_fused",
                          "packed_key_lookup_rows", "pad_lookup",
@@ -2243,9 +2301,12 @@ def main() -> int:
         "chain_width": check_compact(sort_inputs(8 * w, False), 4 * cap,
                                      "merge rows at the chain's width", card),
     }
+    fanos = {"c16dd": check_fano(2, 2000, "c16dd's window", card),
+             "chain": check_fano(4, 10000, "the chain's window", card)}
     res = {
         "transport": check_transport(sim, vertices[:BATCH], momenta[:BATCH],
                                      card),
+        "fano": fanos["chain"],
         "compact_runs": compactions["flagship"],
         "deposit_rows": deposit_rows["flagship"],
         "deposit": check_deposit(sim, inputs, "random cells", card),
@@ -2425,6 +2486,8 @@ def main() -> int:
                        flagship_bound_ms=k6_flagship["bound_ms"])
         if name == "compact_runs":
             row["cases"] = compactions
+        if name == "fano":
+            row["cases"] = fanos
         if name in ("merge_cluster", "merge_fused"):
             row["cases"] = {key: {k: v[k] for k in (
                 "width", "cap", "k5_route", "n_cta", "chunk", "live_share",

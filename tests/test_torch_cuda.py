@@ -13,8 +13,9 @@ against torch.sort of the whole row), K6, the deposit-rows kernel and the
 run-end compaction bit-exact; K5 (both routes) key2 and n_uniq exact and
 c2 bit-exact; the Spyral assembly
 (``csrc/assemble.cu``) bit-exact against its plain version and the C++
-library. A wrapper given a CUDA tensor it cannot take raises: nothing
-falls back.
+library; the Fano kernel (``csrc/fano.cu``) bit-exact against
+``generate_electrons`` of ``fano_noise``, on one card and on two. A
+wrapper given a CUDA tensor it cannot take raises: nothing falls back.
 """
 
 import importlib.util
@@ -38,6 +39,7 @@ from attpc_engine_tpu_torch.detector import (
     compact_cuda,
     deposit_cuda,
     deposition,
+    fano_cuda,
     merge_cuda,
     sort_cuda,
     transport_cuda,
@@ -1131,3 +1133,96 @@ def test_run_reader_assembles_on_the_card(cuda_device, monkeypatch):
     for (spyral, labels, _, _), (rs, rl) in zip(writer.batches, refs):
         np.testing.assert_array_equal(_bits(spyral), _bits(rs))
         np.testing.assert_array_equal(labels, rl)
+
+
+FANO = (34.0, 0.2)  # w_value, fano_factor
+
+
+def _fano_dke(n_steps: int, width: int, seed: int, device) -> torch.Tensor:
+    """Deposits in MeV, 30 % of them 0 and every step of the second half
+    0, as a window's dead tracks and steps are."""
+    g = torch.Generator(device=device).manual_seed(seed & 0xFFFFFFFF)
+    dke = torch.rand((n_steps, width), generator=g, device=device) * 0.05
+    dke[torch.rand(dke.shape, generator=g, device=device) < 0.3] = 0.0
+    dke[n_steps // 2:] = 0.0
+    return dke
+
+
+def _fano_plain(dke, seed, event_start, n_events, tracks, chunk_steps):
+    noise = deposition.fano_noise(seed, event_start, n_events, tracks,
+                                  dke.shape[0], chunk_steps,
+                                  device=dke.device)
+    return deposition.generate_electrons(dke, noise, *FANO)
+
+
+@pytest.mark.parametrize("tracks,chunk_steps,n_steps,n_events,event_start,"
+                         "seed", [
+    (2, 500, 2000, 384, 0, 11),  # c16dd's window
+    (4, 500, 10000, 384, 384, 12),  # the chain's
+    (3, 7, 21, 5, 9, 13),  # cs * K not a multiple of 4
+    (4, 500, 300, 384, 0, 14),  # a window shorter than a chunk
+    (2, 500, 2000, 384, 2**32 - 100, 15),  # the event id wraps
+    (4, 500, 1000, 384, 1, (0xC0FFEE << 40) | 0x12345678),  # high word
+    (1, 30, 90, 7, 5, 16),  # one track
+])
+def test_fano_kernel_matches_plain(cuda_device, tracks, chunk_steps, n_steps,
+                                   n_events, event_start, seed):
+    dke = _fano_dke(n_steps, n_events * tracks, seed, cuda_device)
+    before = fano_cuda.launches
+    got = fano_cuda.fano_electrons_cuda(dke, seed, event_start, n_events,
+                                        tracks, chunk_steps, *FANO)
+    assert fano_cuda.launches == before + 1
+    ref = _fano_plain(dke, seed, event_start, n_events, tracks, chunk_steps)
+    bad = got != ref
+    assert not bad.any(), (
+        f"{int(bad.sum())} of {bad.numel()} counts differ, largest by "
+        f"{int((got.long() - ref.long()).abs().max())}")
+    assert int(ref.max()) > 0
+
+
+def test_fano_kernel_on_two_cards(cuda_device):
+    """Each shard's electrons on its own card, launched from one thread:
+    the plain version's on that card, and the one-card batch's columns."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards")
+    k, cs, n_steps, e = 4, 500, 2000, 384
+    dke = _fano_dke(n_steps, e * k, 21, "cuda:0")
+    whole = fano_cuda.fano_electrons_cuda(dke, 21, 0, e, k, cs, *FANO)
+    for card, (lo, hi) in enumerate(((0, e // 2), (e // 2, e))):
+        dev = torch.device("cuda", card)
+        part = dke[:, lo * k:hi * k].to(dev).contiguous()
+        got = fano_cuda.fano_electrons_cuda(part, 21, lo, hi - lo, k, cs,
+                                            *FANO)
+        assert got.device == dev
+        assert torch.equal(got, _fano_plain(part, 21, lo, hi - lo, k, cs))
+        assert torch.equal(got.cpu(), whole[:, lo * k:hi * k].cpu())
+
+
+def test_fano_stage_on_the_card(cuda_device):
+    """``_core`` on the card: the kernel, counted at "kernel"; with the
+    same draws given as noise, the plain version, counted at "plain"; the
+    two steps' outputs equal bit for bit."""
+    from attpc_engine_tpu_torch.utils import profiling
+
+    sim, vert, mom = _simulator(cuda_device, n_time_steps=1000,
+                                chunk_steps=250, events_per_batch=8)
+    e, k = 8, sim.k_tracks
+    noise = deposition.fano_noise(3, 16, e, k, 1000, 250,
+                                  device=cuda_device).cpu().numpy()
+    outs, counters = [], []
+    for given in (None, noise):
+        rec = profiling.PhaseTimes()
+        token = profiling.begin_run(rec)
+        before = fano_cuda.launches
+        try:
+            outs.append(sim.simulate_batch(vert[:e], mom[:e], seed=3,
+                                           event_start=16, noise=given,
+                                           assemble=False))
+        finally:
+            profiling.end_run(token)
+        counters.append((rec.counters["fano.draws"],
+                         fano_cuda.launches - before))
+    assert counters == [({"kernel": 1000 * e * k}, 1),
+                        ({"plain": 1000 * e * k}, 0)]
+    for name in ("meta_i32", "packed", "spyral_counts"):
+        assert torch.equal(outs[0][name], outs[1][name]), name

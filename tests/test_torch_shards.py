@@ -365,10 +365,12 @@ def test_one_device_keeps_its_names():
     assert routes and routes <= {"empty", "wide"} | {
         f"cluster-{n}" for n in sort_cuda.CLUSTER_SIZES}
     assert sites - {("merge_sort.rows", r) for r in routes} == {
-        ("syncs", "transport.window"), ("syncs", "pull-meta")}
+        ("syncs", "transport.window"), ("syncs", "pull-meta"),
+        ("fano.draws", "plain")}
     assert counters == {"syncs", "pinned_allocs", "pinned_bytes", "retries",
                         "batches", "merge_sort.lanes",
-                        "merge_sort.width_lanes", "merge_sort.rows"}
+                        "merge_sort.width_lanes", "merge_sort.rows",
+                        "fano.draws"}
     assert {s.thread for s in rec.spans} == {"MainThread", "spyral-writer"}
 
 
