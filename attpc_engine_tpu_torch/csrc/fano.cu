@@ -32,6 +32,13 @@
 // step are contiguous. A counter whose deposits are all exactly 0 (dead
 // tracks and steps) draws nothing: its counts are 0 whatever the noise,
 // which is finite (u1 is in (0, 1]).
+//
+// The words that change from batch to batch, the seed's two and the
+// batch's first global event id, are read from a buffer on the card
+// (`words`: seed low word, event id low word, seed high word), not passed
+// as arguments: a CUDA graph of the step freezes a kernel's arguments, and
+// the caller refills the buffer before each replay (DetectorSimulator.
+// simulate_batch copies it to the card with the batch's inputs).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,10 +57,7 @@ struct FanoParams {
   int tracks;     // K
   int cs;         // steps a chunk
   int n_ctr;      // counters a chunk: ceil(cs * K / 4)
-  uint32_t key0;  // seed low word
-  uint32_t ev0;   // global id of event 0, low word
   uint32_t ctr2;  // the stream
-  uint32_t ctr3;  // seed high word
   float c_w;      // f32(1e6 / w_value)
   float fano;     // f32(fano_factor)
   float two_pi;   // f32(2 pi)
@@ -80,11 +84,14 @@ __device__ __forceinline__ float2 box_muller(uint32_t a, uint32_t b,
   return make_float2(__fmul_rn(r, cosf(th)), __fmul_rn(r, sinf(th)));
 }
 
-// the four normals of counter i of chunk c of event e
-__device__ __forceinline__ void normals(const FanoParams& p, int e, int c,
-                                        int i, float z[4]) {
-  uint4 w = philox(make_uint4((uint32_t)i, (uint32_t)c, p.ctr2, p.ctr3),
-                   p.key0, p.ev0 + (uint32_t)e);
+// the four normals of counter i of chunk c of event e; words: seed low
+// word, global id of event 0 (low word), seed high word
+__device__ __forceinline__ void normals(const FanoParams& p,
+                                        const uint32_t* __restrict__ words,
+                                        int e, int c, int i, float z[4]) {
+  uint4 w = philox(
+      make_uint4((uint32_t)i, (uint32_t)c, p.ctr2, __ldg(words + 2)),
+      __ldg(words), __ldg(words + 1) + (uint32_t)e);
   float2 a = box_muller(w.x, w.y, p.two_pi);
   float2 b = box_muller(w.z, w.w, p.two_pi);
   z[0] = a.x;
@@ -103,8 +110,8 @@ __device__ __forceinline__ int electrons(float d, float z,
 // Normal w of counter i is j = 4 i + w, at (step j / K, track j % K) of the
 // chunk while j < cs * K.
 __global__ void __launch_bounds__(kThreads) fano_kernel(
-    const float* __restrict__ dke, int* __restrict__ out, int n_threads,
-    const FanoParams p) {
+    const float* __restrict__ dke, int* __restrict__ out,
+    const uint32_t* __restrict__ words, int n_threads, const FanoParams p) {
   int tid = blockIdx.x * kThreads + threadIdx.x;
   if (tid >= n_threads) return;
   int e = tid % p.n_events;
@@ -126,7 +133,7 @@ __global__ void __launch_bounds__(kThreads) fano_kernel(
     live |= d[w] != 0.0f;
   }
   float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (live) normals(p, e, c, i, z);
+  if (live) normals(p, words, e, c, i, z);
 #pragma unroll
   for (int w = 0; w < 4; ++w) {
     if (at[w] >= 0) out[at[w]] = electrons(d[w], z[w], p);
@@ -136,13 +143,14 @@ __global__ void __launch_bounds__(kThreads) fano_kernel(
 }  // namespace
 
 // dke [n_steps, n_events * tracks] f32, out the same shape int32; chunk_steps
-// already cut to n_steps. The threads, n_events x counters x chunks, and
-// the elements must each be fewer than 2^31. Returns the cudaError_t of the
-// launch.
+// already cut to n_steps; words [3] uint32 on the card (seed low word,
+// global id of event 0 low word, seed high word), read when the kernel
+// runs. The threads, n_events x counters x chunks, and the elements must
+// each be fewer than 2^31. Returns the cudaError_t of the launch.
 extern "C" int attpc_fano_electrons(
-    const void* dke, void* out, int n_steps, int n_events, int tracks,
-    int chunk_steps, uint32_t key0, uint32_t ev0, uint32_t ctr2,
-    uint32_t ctr3, float c_w, float fano, float two_pi, void* stream) {
+    const void* dke, void* out, const void* words, int n_steps, int n_events,
+    int tracks, int chunk_steps, uint32_t ctr2, float c_w, float fano,
+    float two_pi, void* stream) {
   if (n_steps <= 0 || n_events <= 0 || tracks <= 0) return (int)cudaSuccess;
   if (chunk_steps <= 0 || chunk_steps > n_steps) {
     return (int)cudaErrorInvalidValue;
@@ -155,10 +163,11 @@ extern "C" int attpc_fano_electrons(
                                    INT32_MAX) {
     return (int)cudaErrorInvalidValue;
   }
-  FanoParams p{n_steps, n_events, tracks, chunk_steps, (int)n_ctr, key0,
-               ev0,     ctr2,     ctr3,   c_w,         fano,       two_pi};
+  FanoParams p{n_steps, n_events, tracks, chunk_steps, (int)n_ctr,
+               ctr2,    c_w,      fano,   two_pi};
   unsigned blocks = (unsigned)((n_threads + kThreads - 1) / kThreads);
   fano_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)dke, (int*)out, (int)n_threads, p);
+      (const float*)dke, (int*)out, (const uint32_t*)words, (int)n_threads,
+      p);
   return (int)cudaGetLastError();
 }

@@ -314,7 +314,10 @@ class _PackedRows(_Output):
     child assembles them on the host)."""
 
     def pull(self, sim, out, meta: StepMeta, start: int, batch: int):
-        return (out["packed"][:meta.kept],)
+        # a copy on the current stream: the side stream's copy to the host
+        # may run after the next replay of the step's graph overwrites the
+        # graph's rows (step_graph.py)
+        return (out["packed"][:meta.kept].clone(),)
 
     def write(self, b: _Batch) -> None:
         with phase_timer(self.times, "pull-packed", b.start):
@@ -790,8 +793,7 @@ def run_simulation(
     manifest holds the counters and spans too.
 
     "counters", always kept: "syncs", the host's waits on the device by
-    site ("transport.window": each physics window's live-track check;
-    "pull-meta": a batch's metadata; "cloud-overflow": the raw cloud's
+    site ("pull-meta": a batch's metadata; "cloud-overflow": the raw cloud's
     pool overflow; "assemble": ``simulate_batch(assemble=True)``;
     "copy-finish": the writer thread's wait for a batch's copy; over
     several devices each site carries the card's name,
@@ -811,7 +813,9 @@ def run_simulation(
     "cluster-8", "wide", "empty"); "fano.draws", each step's Fano draws
     (steps x events x tracks) by where they were made: "kernel"
     (``fano_cuda``, on the card) or "plain" (``fano_noise``, or the
-    caller's noise).
+    caller's noise); "step.graph", the steps on the card that may run as a
+    CUDA graph (``step_graph.py``), by how they ran: "eager" (the first at
+    its budgets), "capture" (the second, captured and run) or "replay".
 
     "spans", while a torch profiler records (``utils.trace_to``; empty
     without one): each span's host seconds, count and, for a step stage

@@ -14,10 +14,17 @@ converts them to. What bounds it on the card is bytes: one read of dke and
 one write of the counts. A counter whose four deposits are all 0 draws
 nothing.
 
+The seed and the batch's first global event id reach the kernel through
+three words on the card (``fano_words``), read when it runs: a CUDA graph
+of the step freezes a kernel's arguments, and ``DetectorSimulator.
+simulate_batch`` refills the words before each replay, in the one copy of
+the batch's inputs to the card.
+
 ``DetectorSimulator._core`` launches it on the card when no noise is given;
 the recorder's counter ``fano.draws`` counts the draws of each step by
-site, ``kernel`` or ``plain``. ``launches`` counts the calls of
-``fano_electrons_cuda``.
+site, ``kernel`` or ``plain``, on every replay of a captured step too.
+``launches`` counts the calls of ``fano_electrons_cuda``, and a launch
+inside a captured CUDA graph once for each replay (``step_graph``).
 """
 
 from __future__ import annotations
@@ -25,27 +32,48 @@ from __future__ import annotations
 import ctypes
 import math
 
+import numpy as np
 import torch
 
 from .. import kernels
 from .deposition import FANO_STREAM
 
-__all__ = ["fano_electrons_cuda", "launches"]
+__all__ = ["fano_electrons_cuda", "fano_key", "fano_words", "launches",
+           "WORDS"]
 
 _MASK32 = 0xFFFFFFFF
+WORDS = 3  # the kernel's words on the card
 
 launches = 0
 
 
-def fano_electrons_cuda(dke: torch.Tensor, seed: int, event_start: int,
+def fano_words(seed: int, event_start: int) -> np.ndarray:
+    """The kernel's words of a batch, int32 [WORDS] on the host (uint32
+    bits): the seed's low word, the low word of the batch's first global
+    event id, the seed's high word."""
+    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
+    return np.array([seed & _MASK32, int(event_start) & _MASK32, seed >> 32],
+                    dtype=np.uint32).view(np.int32)
+
+
+def fano_key(words: torch.Tensor) -> tuple[int, int]:
+    """(seed, low word of the first event id) of ``fano_words``' words
+    on the host: the key of ``deposition.fano_noise``'s draws, the same as
+    the kernel's."""
+    lo, ev0, hi = (v & _MASK32 for v in words.tolist())
+    return lo | hi << 32, ev0
+
+
+def fano_electrons_cuda(dke: torch.Tensor, words: torch.Tensor,
                         n_events: int, tracks: int, chunk_steps: int,
                         w_value: float, fano_factor: float) -> torch.Tensor:
     """Electron counts [n_steps, n_events * tracks] int32 of the deposits
     ``dke`` [n_steps, n_events * tracks] f32 on the card, equal to
     ``generate_electrons(dke, fano_noise(seed, event_start, n_events,
-    tracks, n_steps, chunk_steps), w_value, fano_factor)``. Launched on
-    the current stream of dke's card. The kernel refuses (and this
-    raises) 2^31 or more counts or threads (one a counter)."""
+    tracks, n_steps, chunk_steps), w_value, fano_factor)``, where ``words``
+    holds ``fano_words(seed, event_start)`` on dke's card when the kernel
+    runs. Launched on the current stream of dke's card. The kernel refuses
+    (and this raises) 2^31 or more counts or threads (one a counter)."""
     global launches
     if dke.dim() != 2:
         raise ValueError(f"expected dke [T, E*K], got {tuple(dke.shape)}")
@@ -55,16 +83,17 @@ def fano_electrons_cuda(dke: torch.Tensor, seed: int, event_start: int,
     n_steps = dke.shape[0]
     kernels.require(dke, "dke", torch.float32,
                     (n_steps, n_events * tracks))
+    kernels.require(words, "words", torch.int32, (WORDS,))
+    if words.device != dke.device:
+        raise ValueError(f"words on {words.device}, dke on {dke.device}")
     out = torch.empty(dke.shape, dtype=torch.int32, device=dke.device)
-    seed = int(seed) & 0xFFFFFFFFFFFFFFFF
-    u32, f32 = ctypes.c_uint32, ctypes.c_float
+    f32 = ctypes.c_float
     with torch.cuda.device(dke.device):
         err = kernels.library().attpc_fano_electrons(
-            kernels.ptr(dke), kernels.ptr(out), n_steps, n_events, tracks,
-            min(chunk_steps, n_steps), u32(seed & _MASK32),
-            u32(int(event_start) & _MASK32), u32(FANO_STREAM),
-            u32(seed >> 32), f32(1.0e6 / w_value), f32(fano_factor),
-            f32(2.0 * math.pi), kernels.stream(dke))
+            kernels.ptr(dke), kernels.ptr(out), kernels.ptr(words), n_steps,
+            n_events, tracks, min(chunk_steps, n_steps),
+            ctypes.c_uint32(FANO_STREAM), f32(1.0e6 / w_value),
+            f32(fano_factor), f32(2.0 * math.pi), kernels.stream(dke))
     kernels.check(err, "fano_electrons")
     launches += 1
     return out

@@ -8,7 +8,10 @@ merge="fused")``), and the Spyral conversion (K3), giving packed int32 rows
 per batch, which the Spyral assembly (``assemble_device``: TB wiggle, z
 order and the eight f64 columns in one kernel on the card) turns into the
 rows of the Spyral HDF5 files; ``StepMeta`` reads a step's metadata on the
-host. ``simulate`` runs one event. The driver that streams the batches of a
+host. On a CUDA device the default step (no noise given, no raw cloud
+pooled, ``merge="sorts"``, ``lookup="two_stage"``) runs as one CUDA graph
+from its second call in a row at the same budgets (``step_graph.py``).
+``simulate`` runs one event. The driver that streams the batches of a
 kinematics file through the step into a writer, ``run_simulation`` and its
 batch loop ``run_reader``, is ``driver.py``; both names are importable from
 here too. All run on the card unless the caller passes ``device="cpu"``,
@@ -47,10 +50,11 @@ from .deposition import (
 )
 from . import assemble_cuda
 from .assemble import AssembleTables
-from .fano_cuda import fano_electrons_cuda
+from .fano_cuda import WORDS, fano_electrons_cuda, fano_key, fano_words
 from .parameters import PAD_ID_SENTINEL, PAD_TABLE_NX, PAD_TABLE_NY, Config
 from .response import get_response
 from .sort_cuda import live_sites, sort_rows
+from .step_graph import StepGraphs
 from .transport import TrackSpecies, integrate_tracks
 
 __all__ = [
@@ -123,8 +127,9 @@ class EngineParams:
         tracks' observed lifetimes (and retries larger when they outlive
         it), never past this value.
     dt: integrator step in seconds (reference: 1e-10).
-    chunk_steps: steps per transport window; the host stops after the
-        first window that ends with every track dead.
+    chunk_steps: steps per transport window; the windows after the first
+        that ends with every track dead do nothing (decided on the
+        device).
     point_budget: deposit-point slots per event; overflow is counted and
         ``run_simulation`` doubles the budget and retries.
     uniq_budget: unique (pad, tb) slots per event (the merged window).
@@ -183,6 +188,9 @@ class DetectorSimulator:
         device: torch.device | str = "cuda",
     ):
         self.device = require_device(device)
+        # the default step's CUDA graph (step_graph.py); none off the card
+        self._graphs = (StepGraphs(self.device) if self.device.type == "cuda"
+                        else None)
         self.config = config
         self.engine = engine or EngineParams()
         if indices is None:
@@ -237,8 +245,11 @@ class DetectorSimulator:
         Keys: mass, charge [S]; dedx [S, N]; log_ke_lo, dlog_ke; key_grid_mm
         [n_mm, n_mm]; either pad_table [560, 640] or the JAX kernel's
         plane_hi and plane_lo (pad id = hi * 128 + lo); labels [S];
-        resp_max. The key grid is checked against the pad table.
+        resp_max. The key grid is checked against the pad table. A graph
+        of the step, which reads the old tables, is dropped.
         """
+        if self._graphs is not None:
+            self._graphs.forget()
         dev = self.device
         f32 = torch.float32
         if "pad_table" in state:
@@ -272,30 +283,51 @@ class DetectorSimulator:
 
     # ------------------------------------------------------------------ #
 
+    def _stage_inputs(self, vertices: np.ndarray, momenta: np.ndarray,
+                      seed: int, event_start: int) -> torch.Tensor:
+        """The step's inputs on the host, f32 [E * (3 + 3 K) + WORDS]: the
+        vertices and the initial gamma*beta of each event's tracks (``vg``
+        [E, 3 + 3 K], row by row), then the Fano kernel's words of the batch
+        (``fano_words``, their int32 bits), so that one copy takes them to
+        the device."""
+        e = len(vertices)
+        # initial gamma*beta = p / m (reference solver.py:273), f64 on host
+        p3 = momenta[:, self.sim_indices, :3]
+        gvs = (p3 / self.track_masses[None, :, None]).astype(np.float32)
+        host = np.empty(e * (3 + 3 * self.k_tracks) + WORDS, np.float32)
+        vg = host[:-WORDS].reshape(e, -1)
+        vg[:, :3] = vertices
+        vg[:, 3:] = gvs.reshape(e, -1)
+        host[-WORDS:] = fano_words(seed, event_start).view(np.float32)
+        return torch.from_numpy(host)
+
     def _core(
         self,
-        vg: torch.Tensor,
+        inputs: torch.Tensor,
         n_events: int,
         point_budget: int,
         uniq_budget: int,
         n_steps: int,
-        seed: int,
-        event_start: int,
         noise: torch.Tensor | None,
-        wiggle: bool = False,
+        wiggle: tuple[int, int] | None = None,
     ):
         """Transport + electrons + deposit/merge for ``n_events`` events
-        (simulator.py:359-485). ``noise`` [n_steps, E*K] replaces the Fano
-        draws of ``fano_noise(seed, event_start, ...)``; with ``wiggle`` the
-        cloud also holds the raw cloud's wiggled ``tbs`` (``raw_wiggle``).
-        Returns (cloud dict, steps_alive)."""
+        (simulator.py:359-485), from ``_stage_inputs``'s ``inputs`` on the
+        device, which hold the batch's seed and first event id in the Fano
+        words: the kernel reads them on the card, the plain
+        ``fano_noise(seed, event_start, ...)`` on the host. ``noise``
+        [n_steps, E*K] replaces the Fano draws. With ``wiggle`` (seed,
+        event_start) the cloud also holds the raw cloud's wiggled ``tbs``
+        (``raw_wiggle``). Returns (cloud dict, steps_alive)."""
         cfg, eng = self.config, self.engine
         dp = cfg.det_params
         e, k = n_events, self.k_tracks
         b = e * k
         chunk = min(eng.chunk_steps, n_steps)
+        vg = inputs[:-WORDS].view(e, 3 + 3 * k)
         with stage("step.transport"):
-            pos0 = vg[:, :3].repeat_interleave(k, dim=0)  # [B, 3] event-major
+            # [B, 3] event-major
+            pos0 = vg[:, None, :3].expand(e, k, 3).reshape(b, 3)
             gv0 = vg[:, 3:].reshape(b, 3)
             s_idx = torch.arange(k, dtype=torch.int32,
                                  device=vg.device).repeat(e)
@@ -312,23 +344,23 @@ class DetectorSimulator:
         with stage("step.fano"):
             # on the card the draws and counts are one kernel; given noise
             # (the tests' JAX draws) and the CPU take the plain version
+            words = inputs[-WORDS:].view(torch.int32)
             if noise is None and vg.is_cuda:
                 site = "kernel"
                 electrons = fano_electrons_cuda(
-                    dke, seed, event_start, e, k, chunk, dp.w_value,
-                    dp.fano_factor)
+                    dke, words, e, k, chunk, dp.w_value, dp.fano_factor)
             else:
                 site = "plain"
                 if noise is None:
-                    noise = fano_noise(seed, event_start, e, k, n_steps,
+                    noise = fano_noise(*fano_key(words), e, k, n_steps,
                                        chunk, device=vg.device)
                 electrons = generate_electrons(
                     dke, noise.to(vg.device), dp.w_value, dp.fano_factor
                 )
             count("fano.draws", site, n_steps * b)
             u_cap = min(uniq_budget, point_budget * 100)
-            raw = (raw_wiggle(seed, event_start, e, u_cap, device=vg.device)
-                   if wiggle else None)
+            raw = (None if wiggle is None else
+                   raw_wiggle(*wiggle, e, u_cap, device=vg.device))
         cloud = deposit_and_merge(
             positions, electrons, alive, track_labels,
             self.pad_table,
@@ -431,7 +463,8 @@ class DetectorSimulator:
     def count_merge_sort(self, meta: StepMeta, point_budget: int) -> None:
         """Count what K3's live merge sort took in one step of this
         simulator's at ``point_budget``, from the step's metadata, in the
-        current run's recorder: "merge_sort.lanes", the events' prefixes
+        current run's recorder, whether the step ran eagerly or as a
+        replay of its graph: "merge_sort.lanes", the events' prefixes
         (min(n_points, point_budget) * 100 lanes an event);
         "merge_sort.width_lanes", the rows' lanes; "merge_sort.rows", the
         events by the route their prefix takes on the card. Nothing where
@@ -587,33 +620,43 @@ class DetectorSimulator:
         pooled by ``compact_cloud`` at ``cloud_cap`` rows an event (its
         counts replace the merged ones) and ``cloud_overflow`` counts the
         rows past the pool: the reference-protocol writer's layout.
+
+        On a CUDA device the default step (no ``noise``, no ``compact``,
+        ``merge="sorts"``, ``lookup="two_stage"``) is a CUDA graph from the
+        second call in a row at the same events and budgets
+        (``step_graph.py``): its tensors are then the graph's, which the
+        next such call overwrites on the current stream. Read them, or
+        queue what reads them on the current stream, before that call.
         """
         eng = self.engine
         e = len(vertices)
+        budgets = (point_budget or eng.point_budget,
+                   uniq_budget or eng.uniq_budget,
+                   out_budget or eng.out_budget, n_steps or eng.n_time_steps)
+        graphs = (self._graphs if noise is None and not compact
+                  and rows_path(eng.merge, eng.lookup) else None)
+        key = (self.device, e, *budgets)
         with stage("step.prepare"):
-            # initial gamma*beta = p / m (reference solver.py:273), f64 on
-            # host
-            p3 = momenta[:, self.sim_indices, :3]
-            gvs = (p3 / self.track_masses[None, :, None]).astype(np.float32)
-            vg = np.concatenate(
-                [np.asarray(vertices, dtype=np.float32), gvs.reshape(e, -1)],
-                axis=1,
-            )
-            vg_dev = torch.from_numpy(vg).to(self.device)
+            host = self._stage_inputs(vertices, momenta, seed, event_start)
+            inputs = (graphs.inputs(key, host) if graphs is not None
+                      else host.to(self.device, non_blocking=True))
             if noise is not None:
                 noise = torch.tensor(noise, dtype=torch.float32)
-        cloud, steps_alive = self._core(
-            vg_dev, e, point_budget or eng.point_budget,
-            uniq_budget or eng.uniq_budget, n_steps or eng.n_time_steps,
-            seed, event_start, noise, wiggle=compact,
-        )
-        with stage("step.convert"):
-            out = self._finish(cloud, steps_alive,
-                               out_budget or eng.out_budget, e)
-            if compact:
-                cc = compact_cloud(out, e, cloud_cap or eng.cloud_cap)
-                out["cloud_overflow"] = cc.pop("overflow")
-                out.update(cc)
+
+        def step(inputs: torch.Tensor) -> dict:
+            # what a graph replays: a function of the inputs alone
+            cloud, steps_alive = self._core(
+                inputs, e, budgets[0], budgets[1], budgets[3], noise,
+                wiggle=(seed, event_start) if compact else None)
+            with stage("step.convert"):
+                out = self._finish(cloud, steps_alive, budgets[2], e)
+                if compact:
+                    cc = compact_cloud(out, e, cloud_cap or eng.cloud_cap)
+                    out["cloud_overflow"] = cc.pop("overflow")
+                    out.update(cc)
+            return out
+
+        out = step(inputs) if graphs is None else graphs.run(key, inputs, step)
         if assemble:
             count("syncs", "assemble")
             total = int(out["spyral_counts"].sum())

@@ -9,10 +9,15 @@ rho > 0.292 m) are per-lane alive flags: dead lanes freeze and deposit
 nothing.
 
 ``integrate_tracks`` runs windows of ``chunk_steps`` and stops once every
-lane is dead, as ``integrate_tracks_pallas_chunked`` does. Each window is
-one call of ``transport_cuda.rk4_window``: the K1 kernel for CUDA tensors,
-``rk4_window_plain`` (below) for CPU tensors. Both follow the arithmetic of
-the Pallas kernel (transport_pallas.py:45-170) operation by operation,
+lane is dead, as ``integrate_tracks_pallas_chunked`` does, but decides it
+on the device: it launches every window with no host sync, and each window
+reads a gate word that the window before it wrote, "some lane was alive at
+this window's start", and returns at once where it is 0 (so that the step
+can be captured as one CUDA graph). Each window is one call of
+``transport_cuda.rk4_window``: the K1 kernel for CUDA tensors,
+``rk4_window_plain`` (below) for CPU tensors, which keeps the same gate.
+Both follow the arithmetic of the Pallas kernel
+(transport_pallas.py:45-170) operation by operation,
 including its index clipping for the table lookup (n_tab - 1.001, then
 floor), which differs from transport.py:79 (n_tab - 1.000001, truncation).
 """
@@ -25,7 +30,6 @@ import numpy as np
 import torch
 
 from ..constants import C, E_CHARGE, MEV_2_JOULE, MEV_2_KG
-from ..utils.profiling import count, device_wait
 
 __all__ = [
     "TrackSpecies",
@@ -126,6 +130,7 @@ def rk4_window_plain(
     out_dke: torch.Tensor,
     out_alive: torch.Tensor,
     k: Rk4Constants,
+    gate: torch.Tensor,
 ) -> None:
     """Plain PyTorch version of the K1 kernel: one window of
     ``out_dke.shape[0]`` steps.
@@ -133,8 +138,13 @@ def rk4_window_plain(
     pos, gv [B, 3] f32 and alive [B] bool are the carry, updated in place to
     the state at the window's end; out_pos [T, B, 3], out_dke [T, B] f32 and
     out_alive [T, B] bool receive the per-step position, |dKE| and alive
-    flag. s_idx [B] int, mass and q_m [B] f32, dedx [S, N] f32.
+    flag. s_idx [B] int, mass and q_m [B] f32, dedx [S, N] f32. gate [2]
+    int32, the kernel's: the window runs only where gate[0] is not 0 (read
+    on the host here), writing nothing otherwise, and then ORs 1 into
+    gate[1] where a lane is alive at its end.
     """
+    if not bool(gate[0]):
+        return
     n_tab = dedx.shape[1]
     table = dedx.reshape(-1)
     base = s_idx.long() * n_tab
@@ -195,6 +205,7 @@ def rk4_window_plain(
     pos.copy_(p)
     gv.copy_(g)
     alive.copy_(live)
+    gate[1] |= live.any().to(gate.dtype)
 
 
 def track_constants(
@@ -226,7 +237,10 @@ def integrate_tracks(
 
     Returns (positions [n_steps, B, 3] f32, dke [n_steps, B] f32 |dKE| in
     MeV, alive [n_steps, B] bool). Windows of ``chunk_steps`` run until
-    every lane is dead; the rows after that stay zero.
+    every lane is dead; the rows after that stay zero. Every window is
+    launched, with no host sync: the gate words [n_steps / chunk_steps +
+    1] int32 on the device (word 0 whether a lane is alive at t0, word w + 1
+    written by window w) skip the windows after the last live one.
     """
     from .transport_cuda import rk4_window
 
@@ -243,15 +257,13 @@ def integrate_tracks(
     positions = torch.zeros((n_steps, b, 3), dtype=torch.float32, device=dev)
     dkes = torch.zeros((n_steps, b), dtype=torch.float32, device=dev)
     alives = torch.zeros((n_steps, b), dtype=torch.bool, device=dev)
-    for start in range(0, n_steps, chunk_steps):
-        # one host sync per window, as the TPU while-loop's condition
-        count("syncs", "transport.window")
-        with device_wait():
-            done = not bool(alive.any())
-        if done:
-            break
+    # the TPU while-loop's condition, on the device
+    gates = torch.zeros(n_steps // chunk_steps + 1, dtype=torch.int32,
+                        device=dev)
+    gates[0] = alive.any()
+    for w, start in enumerate(range(0, n_steps, chunk_steps)):
         stop = start + chunk_steps
         rk4_window(pos, gv, alive, s_idx, mass, q_m, species.dedx,
                    positions[start:stop], dkes[start:stop],
-                   alives[start:stop], k)
+                   alives[start:stop], k, gates[w:w + 2])
     return positions, dkes, alives

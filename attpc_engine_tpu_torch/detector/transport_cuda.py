@@ -10,10 +10,18 @@ shared memory, and runs each step through branch-free copies of the
 compiler's division and square-root fast paths, recomputing the rare step
 whose operands leave their exact range; see the source for the rest.
 
+Each window is gated on the card: it reads its gate word, which the
+window before it wrote ("some lane of the batch was alive at this window's
+start"), returns at once where it is 0, and ORs the next window's word
+where a lane is alive at its end. ``transport.integrate_tracks`` launches
+every window of the physics window with no host sync and keeps the words.
+
 ``rk4_window`` takes the plain PyTorch version
 (``transport.rk4_window_plain``) for CPU tensors and launches the kernel
 for CUDA tensors, raising where the kernel cannot take them. ``launches``
-counts kernel launches.
+counts kernel launches, a gated window that returns at once included;
+a launch inside a captured CUDA graph is counted once for each replay of
+the graph (``step_graph``).
 """
 
 from __future__ import annotations
@@ -33,11 +41,11 @@ launches = 0
 
 
 def launch_rk4(lib, pos, gv, alive, s_idx, mass, q_m, dedx, out_pos,
-               out_dke, out_alive, k: Rk4Constants,
+               out_dke, out_alive, k: Rk4Constants, gate,
                force_ieee: bool = False) -> None:
     """Check the arguments and launch ``attpc_rk4_window`` of ``lib`` for
-    one window (arguments as ``rk4_window_plain``; ``force_ieee`` as
-    ``rk4_window_cuda``)."""
+    one window (arguments as ``rk4_window_plain``, the gate words [2] int32
+    on the card; ``force_ieee`` as ``rk4_window_cuda``)."""
     b = pos.shape[0]
     t = out_dke.shape[0]
     n_species, n_tab = dedx.shape
@@ -57,12 +65,14 @@ def launch_rk4(lib, pos, gv, alive, s_idx, mass, q_m, dedx, out_pos,
         ("out_pos", out_pos, torch.float32, (t, b, 3)),
         ("out_dke", out_dke, torch.float32, (t, b)),
         ("out_alive", out_alive, torch.bool, (t, b)),
+        ("gate", gate, torch.int32, (2,)),
     ):
         kernels.require(x, name, dtype, shape)
     p = kernels.ptr
     err = lib.attpc_rk4_window(
         p(pos), p(gv), p(alive), p(s_idx), p(mass), p(q_m), p(dedx),
-        n_species, n_tab, p(out_pos), p(out_dke), p(out_alive), b, t,
+        n_species, n_tab, p(out_pos), p(out_dke), p(out_alive), p(gate),
+        b, t,
         k.dt, k.half_dt, k.dt6, k.dens, k.c, k.log_lo, k.dlog, k.clip_hi,
         k.ke_lim, k.z_bound, k.rho2_bound, k.tiny, k.b_neg, k.e_neg,
         k.mev2kg, int(force_ieee), kernels.stream(pos),
@@ -71,7 +81,7 @@ def launch_rk4(lib, pos, gv, alive, s_idx, mass, q_m, dedx, out_pos,
 
 
 def rk4_window_cuda(pos, gv, alive, s_idx, mass, q_m, dedx, out_pos, out_dke,
-                    out_alive, k: Rk4Constants,
+                    out_alive, k: Rk4Constants, gate,
                     force_ieee: bool = False) -> None:
     """Launch K1 for one window (arguments as ``rk4_window_plain``). With
     ``force_ieee`` every step goes through the compiler's IEEE operators
@@ -79,17 +89,17 @@ def rk4_window_cuda(pos, gv, alive, s_idx, mass, q_m, dedx, out_pos, out_dke,
     reference the kernel is held to on the card."""
     global launches
     launch_rk4(kernels.library(), pos, gv, alive, s_idx, mass, q_m, dedx,
-               out_pos, out_dke, out_alive, k, force_ieee)
+               out_pos, out_dke, out_alive, k, gate, force_ieee)
     launches += 1
 
 
 def rk4_window(pos, gv, alive, s_idx, mass, q_m, dedx, out_pos, out_dke,
-               out_alive, k: Rk4Constants) -> None:
-    """One RK4 window: the K1 kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+               out_alive, k: Rk4Constants, gate) -> None:
+    """One gated RK4 window: the K1 kernel for CUDA tensors, the plain
+    version for CPU tensors."""
     if pos.is_cuda:
         rk4_window_cuda(pos, gv, alive, s_idx, mass, q_m, dedx, out_pos,
-                        out_dke, out_alive, k)
+                        out_dke, out_alive, k, gate)
     else:
         rk4_window_plain(pos, gv, alive, s_idx, mass, q_m, dedx, out_pos,
-                         out_dke, out_alive, k)
+                         out_dke, out_alive, k, gate)

@@ -152,7 +152,7 @@ def declare_rk4(lib: ctypes.CDLL) -> None:
     library, or a build of ``transport.cu`` alone)."""
     vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.attpc_rk4_window.argtypes = (
-        [vp] * 7 + [i32, i32] + [vp] * 3 + [i32, i32] + [f32] * 15
+        [vp] * 7 + [i32, i32] + [vp] * 4 + [i32, i32] + [f32] * 15
         + [i32, vp]
     )
     lib.attpc_rk4_window.restype = ctypes.c_int
@@ -186,9 +186,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.attpc_compact_runs.argtypes = [vp] * 7 + [i32, i64, i32, i32, vp]
     lib.attpc_compact_runs_prefix_stride.argtypes = [i32]
     lib.attpc_compact_runs_prefix_stride.restype = i32
-    u32 = ctypes.c_uint32
     lib.attpc_fano_electrons.argtypes = (
-        [vp, vp] + [i32] * 4 + [u32] * 4 + [f32] * 3 + [vp])
+        [vp] * 3 + [i32] * 4 + [ctypes.c_uint32] + [f32] * 3 + [vp])
     f64 = ctypes.c_double
     lib.attpc_assemble_spyral.argtypes = (
         [vp, i64, vp, i32, vp, ctypes.c_uint64] + [vp] * 4 + [i32] + [vp] * 2

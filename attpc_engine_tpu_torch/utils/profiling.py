@@ -40,6 +40,16 @@ the card's stream: its host time leaves out the waits on the card and for
 the baton, and its time on the card runs from the turn's start to the end
 of the work launched in it, which leaves out the card's idle time while
 its thread waits for a turn.
+
+A step captured as a CUDA graph (``detector/step_graph.py``) runs its
+Python once, under a ``Tape`` (``taping``): there ``count`` keeps what the
+step counts on the tape instead, and a step stage records a pair of
+timing events on the capture stream that the graph records again at each
+replay (``torch.cuda.Event(external=True)``). Each run of the graph then
+plays the tape (``Tape.play``): its counts are added to the current run's
+recorder, and under a profiler each stage is a span of the current span's
+batch, timed on the stream by the events of that run of the graph (its
+host start and end are the play's instant).
 """
 
 from __future__ import annotations
@@ -63,6 +73,10 @@ _CURRENT: contextvars.ContextVar = contextvars.ContextVar(
 # devices; None in a run over one
 _CARD: contextvars.ContextVar = contextvars.ContextVar(
     "attpc_card", default=None)
+# the tape of a step being captured as a CUDA graph on this thread's
+# context, or None
+_TAPE: contextvars.ContextVar = contextvars.ContextVar(
+    "attpc_tape", default=None)
 _LAST: list = [None]
 _OFF = nullcontext()
 
@@ -76,7 +90,7 @@ def _new_counters() -> dict:
     return {"syncs": {}, "pinned_allocs": 0, "pinned_bytes": 0,
             "retries": {}, "batches": 0, "merge_sort.lanes": 0,
             "merge_sort.width_lanes": 0, "merge_sort.rows": {},
-            "fano.draws": {}}
+            "fano.draws": {}, "step.graph": {}}
 
 
 @dataclass(eq=False)
@@ -222,6 +236,20 @@ class PhaseTimes:
         with self._lock:
             self.spans.append(span)
 
+    def _played(self, name: str, e0, e1) -> None:
+        """A span ``name`` of a taped stage, timed on the stream by the
+        events ``e0`` and ``e1`` of the graph run just launched, inside the
+        current span and of its batch, at this instant on the host."""
+        stack = self._stack()
+        parent = stack[-1] if stack else None
+        now = time.time_ns()
+        span = Span(name, now, now, parent,
+                    parent.batch if parent is not None else None,
+                    threading.current_thread().name)
+        with self._lock:
+            self._pending.append((span, e0, e1))
+            self.spans.append(span)
+
     def _turn_begin(self, card: _Card) -> None:
         """Open a ``shard.turn`` span of ``card``'s batch on this thread."""
         e0 = None
@@ -312,10 +340,70 @@ def phase_timer(times: PhaseTimes, name: str, batch: int | None = None,
     return _Phase(times, name, batch, device_time)
 
 
+class Tape:
+    """What a step captured as a CUDA graph counts and times, for every
+    run of the graph: ``counts``, the (name, site, n) of each ``count``
+    made while it was captured, and ``stages``, the (name, start event, end
+    event) of each stage. ``event`` makes a timing event that a graph
+    records at each run (None: the stages are not timed)."""
+
+    def __init__(self, event=None):
+        self.event = event
+        self.counts: list = []
+        self.stages: list = []
+
+    def play(self) -> None:
+        """The tape of a graph run just launched: its counts added to the
+        current run's recorder and, under a profiler, its stages' spans."""
+        for c in self.counts:
+            count(*c)
+        times = _CURRENT.get()
+        if times is not None and profiling():
+            for name, e0, e1 in self.stages:
+                times._played(name, e0, e1)
+
+
+class _TapedStage:
+    """``stage``'s block while a step is captured: a pair of the tape's
+    timing events around it, recorded on the capture stream."""
+
+    __slots__ = ("tape", "name", "e0")
+
+    def __init__(self, tape: Tape, name: str):
+        self.tape, self.name = tape, name
+
+    def __enter__(self):
+        self.e0 = self.tape.event()
+        self.e0.record()
+        return self
+
+    def __exit__(self, *exc):
+        e1 = self.tape.event()
+        e1.record()
+        self.tape.stages.append((self.name, self.e0, e1))
+        return False
+
+
+@contextmanager
+def taping(tape: Tape):
+    """The block in which a step is captured: ``count`` and ``stage`` go
+    to ``tape`` (see the module's docstring)."""
+    token = _TAPE.set(tape)
+    try:
+        yield tape
+    finally:
+        _TAPE.reset(token)
+
+
 def stage(name: str):
     """A step stage's block: without a profiler nothing (one flag check);
     under one a ``record_function`` range, and a span of the current run's
-    recorder (``begin_run``) where there is one."""
+    recorder (``begin_run``) where there is one. While a step is captured
+    (``taping``), a pair of the tape's timing events, whatever the
+    profiler."""
+    tape = _TAPE.get()
+    if tape is not None:
+        return _OFF if tape.event is None else _TapedStage(tape, name)
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF
     times = _CURRENT.get()
@@ -325,7 +413,12 @@ def stage(name: str):
 
 
 def count(name: str, site: str | None = None, n: int = 1) -> None:
-    """``PhaseTimes.count`` on the current run's recorder, if any."""
+    """``PhaseTimes.count`` on the current run's recorder, if any; while
+    a step is captured (``taping``), onto the tape instead."""
+    tape = _TAPE.get()
+    if tape is not None:
+        tape.counts.append((name, site, n))
+        return
     times = _CURRENT.get()
     if times is not None:
         times.count(name, site, n)

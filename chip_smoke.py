@@ -240,6 +240,7 @@ A), 4k, 4i, 4m (the single run, and each process's run in that process),
 is no CUDA device or no repository beside the script.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -441,6 +442,18 @@ def flagship_simulator(device, **engine):
     return sim, data["vertices"], data["momenta"]
 
 
+@contextlib.contextmanager
+def eager_step(sim):
+    """``sim``'s steps inside the block run eagerly, never as a replay of
+    its CUDA graph, whose kernels run without the Python calls that the
+    spies below watch."""
+    graphs, sim._graphs = sim._graphs, None
+    try:
+        yield sim
+    finally:
+        sim._graphs = graphs
+
+
 def transport_inputs(sim, vertices, momenta) -> dict:
     """K1's inputs for one window of the flagship batch: 768 tracks, the
     initial state, the per-track constants and a ``run(fn)`` that fills
@@ -464,13 +477,16 @@ def transport_inputs(sim, vertices, momenta) -> dict:
                              float(sim.engine.dt))
     alive0 = T.initial_alive(pos0, gv0, mass)
     b = e * k
+    # an open gate: the window runs (gate[1], the next window's, unread)
+    gate = torch.tensor([1, 0], dtype=torch.int32, device="cuda")
 
     def run(fn, n_steps=steps):
         pos, gv, alive = pos0.clone(), gv0.clone(), alive0.clone()
         out = (torch.empty((n_steps, b, 3), device="cuda"),
                torch.empty((n_steps, b), device="cuda"),
                torch.empty((n_steps, b), dtype=torch.bool, device="cuda"))
-        fn(pos, gv, alive, s_idx, mass, q_m, sim.species.dedx, *out, kc)
+        fn(pos, gv, alive, s_idx, mass, q_m, sim.species.dedx, *out, kc,
+           gate)
         return out
 
     return {"run": run, "steps": steps, "b": b, "alive0": alive0,
@@ -605,8 +621,9 @@ def flagship_rows_args(sim, vertices, momenta) -> tuple:
 
     deposition.deposit_rows = spy
     try:
-        sim.simulate_batch(vertices[:BATCH], momenta[:BATCH], seed=SEED,
-                           assemble=False)
+        with eager_step(sim):
+            sim.simulate_batch(vertices[:BATCH], momenta[:BATCH], seed=SEED,
+                               assemble=False)
     finally:
         deposition.deposit_rows = real
     return seen[0]
@@ -842,8 +859,9 @@ def flagship_merge_rows(sim, vertices, momenta):
 
     deposition.sort_rows_live = spy
     try:
-        sim.simulate_batch(vertices[:BATCH], momenta[:BATCH], seed=SEED,
-                           assemble=False)
+        with eager_step(sim):
+            sim.simulate_batch(vertices[:BATCH], momenta[:BATCH], seed=SEED,
+                               assemble=False)
     finally:
         deposition.sort_rows_live = real
     return seen[0]
@@ -983,8 +1001,10 @@ def check_fano(tracks: int, n_steps: int, label: str, card: str) -> dict:
     half = live.clone()
     half[n_steps // 2:] = 0.0
 
+    words = torch.from_numpy(fano_cuda.fano_words(seed, start)).cuda()
+
     def kernel(dke):
-        return fano_cuda.fano_electrons_cuda(dke, seed, start, e, tracks, cs,
+        return fano_cuda.fano_electrons_cuda(dke, words, e, tracks, cs,
                                              34.0, 0.2)
 
     def plain(dke):

@@ -14,7 +14,10 @@ run-end compaction bit-exact; K5 (both routes) key2 and n_uniq exact and
 c2 bit-exact; the Spyral assembly
 (``csrc/assemble.cu``) bit-exact against its plain version and the C++
 library; the Fano kernel (``csrc/fano.cu``) bit-exact against
-``generate_electrons`` of ``fano_noise``, on one card and on two. A
+``generate_electrons`` of ``fano_noise``, on one card and on two; K1's
+window gate as its plain version's; the default step's CUDA graph
+(``step_graph.py``): its replays bit-exact against the eager step at the
+benchmark cells' tuned budgets, on one card thread and on two. A
 wrapper given a CUDA tensor it cannot take raises: nothing falls back.
 """
 
@@ -114,13 +117,59 @@ def test_transport_kernel_matches_plain(cuda_device):
         out = (torch.zeros((steps, e * k, 3), device="cuda"),
                torch.zeros((steps, e * k), device="cuda"),
                torch.zeros((steps, e * k), dtype=torch.bool, device="cuda"))
-        fn(*state, s_idx, mass, q_m, sim.species.dedx, *out, kc)
-        outs.append(out + state)
+        gate = torch.tensor([1, 0], dtype=torch.int32, device="cuda")
+        fn(*state, s_idx, mass, q_m, sim.species.dedx, *out, kc, gate)
+        outs.append(out + state + (gate,))
     (pr, dr, ar, *cr), (pg, dg, ag, *cg) = outs
     assert torch.equal(ar, ag) and ar.any()
     assert float((pr - pg).abs()[ar].max()) < 1e-6
     assert float((dr - dg).abs()[ar].max()) < 1e-4
     assert torch.equal(cr[2], cg[2])  # the carried alive flags
+    # the next window's gate: some lane is alive at this one's end
+    assert cr[3].tolist() == cg[3].tolist() == [1, int(cr[2].any())]
+
+
+def test_transport_gate_closes_and_passes_on(cuda_device):
+    """K1's gate on the card as in its plain version: a closed gate
+    (word 0 is 0) writes nothing, neither rows nor carry nor the next
+    word; an open one over all-dead lanes writes the frozen rows and
+    leaves the next word 0."""
+    sim, vert, mom = _simulator(cuda_device)
+    e, k, steps = 64, sim.k_tracks, 100
+    p3 = mom[:e, sim.sim_indices, :3]
+    gv0 = torch.from_numpy((p3 / sim.track_masses[None, :, None])
+                           .astype(np.float32).reshape(-1, 3)).cuda()
+    pos0 = torch.from_numpy(np.repeat(vert[:e].astype(np.float32), k,
+                                      axis=0)).cuda()
+    s_idx = torch.arange(k, dtype=torch.int32).repeat(e).cuda()
+    mass, q_m = T.track_constants(sim.species, s_idx)
+    dp = sim.config.det_params
+    kc = T.Rk4Constants.make(sim.species, float(dp.gas_target.density),
+                             float(dp.bfield), float(dp.efield), 1e-10)
+    for word0, dead in ((0, False), (1, True)):
+        got = []
+        for fn in (T.rk4_window_plain, transport_cuda.rk4_window_cuda):
+            alive = T.initial_alive(pos0, gv0, mass)
+            if dead:
+                alive[:] = False
+            state = [pos0.clone(), gv0.clone(), alive]
+            out = [torch.full((steps, e * k, 3), 7.0, device="cuda"),
+                   torch.full((steps, e * k), 7.0, device="cuda"),
+                   torch.ones((steps, e * k), dtype=torch.bool,
+                              device="cuda")]
+            gate = torch.tensor([word0, 0], dtype=torch.int32,
+                                device="cuda")
+            before = [t.clone() for t in state + out]
+            fn(*state, s_idx, mass, q_m, sim.species.dedx, *out, kc, gate)
+            if word0 == 0:
+                assert all(torch.equal(a, b)
+                           for a, b in zip(before, state + out))
+            got.append(state + out + [gate])
+        for a, b in zip(*got):
+            assert torch.equal(a, b)
+        assert got[1][-1].tolist() == [word0, 0]
+        if dead:
+            assert not got[1][5].any() and not got[1][4].any()
 
 
 def test_transport_fast_paths_equal_ieee_operators(cuda_device):
@@ -145,8 +194,9 @@ def test_transport_fast_paths_equal_ieee_operators(cuda_device):
         out = (torch.zeros((steps, e * k, 3), device="cuda"),
                torch.zeros((steps, e * k), device="cuda"),
                torch.zeros((steps, e * k), dtype=torch.bool, device="cuda"))
+        gate = torch.tensor([1, 0], dtype=torch.int32, device="cuda")
         transport_cuda.rk4_window_cuda(*state, s_idx, mass, q_m,
-                                       sim.species.dedx, *out, kc,
+                                       sim.species.dedx, *out, kc, gate,
                                        force_ieee=force_ieee)
         outs.append(out + state)
     assert outs[0][2].any()
@@ -263,13 +313,12 @@ def test_sort_kernel_rejects_what_it_cannot_take(cuda_device):
                                         device=cuda_device).t())
 
 
-def _config_step(name, point_budget, monkeypatch):
-    """The first 384 events of the benchmark's configuration ``name`` (its
+def _config_events(name, n: int = 384):
+    """The first ``n`` events of the benchmark's configuration ``name`` (its
     JSON under port_bench/configs, read as data: the detector, the
-    kinematics and its seed, the physics window), sampled by the port's
-    kinematics pipeline and run through the port's default step at
-    ``point_budget``: the rows and prefixes the step hands its merge sort
-    (K3's live route), and the step's outputs."""
+    kinematics and its seed, the physics window), sampled on the card by
+    the port's kinematics pipeline: (Config, proton numbers, mass numbers,
+    vertices, momenta, the configuration's engine section)."""
     import json
 
     from attpc_engine_tpu_torch.kinematics import (
@@ -307,12 +356,20 @@ def _config_step(name, point_budget, monkeypatch):
          for s in kin["steps"]], kin["beam_energy"],
         target_material=KinematicsTargetMaterial(
             gas, tuple(tm["z_range"]), tm["rho_sigma"]), device="cuda")
-    batch = pipe.sample_events(384, int(kin["seed"]))
+    batch = pipe.sample_events(n, int(kin["seed"]))
     assert bool(batch.accepted.all())
-    vertices = batch.vertices.cpu().numpy()
-    momenta = batch.momenta.cpu().numpy()
+    return (config, pipe.get_proton_numbers(), pipe.get_mass_numbers(),
+            batch.vertices.cpu().numpy(), batch.momenta.cpu().numpy(), e)
+
+
+def _config_step(name, point_budget, monkeypatch):
+    """The first 384 events of the benchmark's configuration ``name``
+    (``_config_events``) run through the port's default step at
+    ``point_budget``: the rows and prefixes the step hands its merge sort
+    (K3's live route), and the step's outputs."""
+    config, z, a, vertices, momenta, e = _config_events(name)
     sim = DetectorSimulator(
-        config, pipe.get_proton_numbers(), pipe.get_mass_numbers(),
+        config, z, a,
         engine=EngineParams(events_per_batch=384, point_budget=point_budget,
                             n_time_steps=int(e["n_time_steps"]),
                             dt=float(e["dt"]),
@@ -1148,6 +1205,11 @@ def _fano_dke(n_steps: int, width: int, seed: int, device) -> torch.Tensor:
     return dke
 
 
+def _fano_words(seed, event_start, device) -> torch.Tensor:
+    return torch.from_numpy(fano_cuda.fano_words(seed, event_start)).to(
+        device)
+
+
 def _fano_plain(dke, seed, event_start, n_events, tracks, chunk_steps):
     noise = deposition.fano_noise(seed, event_start, n_events, tracks,
                                   dke.shape[0], chunk_steps,
@@ -1169,8 +1231,9 @@ def test_fano_kernel_matches_plain(cuda_device, tracks, chunk_steps, n_steps,
                                    n_events, event_start, seed):
     dke = _fano_dke(n_steps, n_events * tracks, seed, cuda_device)
     before = fano_cuda.launches
-    got = fano_cuda.fano_electrons_cuda(dke, seed, event_start, n_events,
-                                        tracks, chunk_steps, *FANO)
+    got = fano_cuda.fano_electrons_cuda(
+        dke, _fano_words(seed, event_start, cuda_device), n_events, tracks,
+        chunk_steps, *FANO)
     assert fano_cuda.launches == before + 1
     ref = _fano_plain(dke, seed, event_start, n_events, tracks, chunk_steps)
     bad = got != ref
@@ -1187,12 +1250,13 @@ def test_fano_kernel_on_two_cards(cuda_device):
         pytest.skip("needs two cards")
     k, cs, n_steps, e = 4, 500, 2000, 384
     dke = _fano_dke(n_steps, e * k, 21, "cuda:0")
-    whole = fano_cuda.fano_electrons_cuda(dke, 21, 0, e, k, cs, *FANO)
+    whole = fano_cuda.fano_electrons_cuda(dke, _fano_words(21, 0, "cuda:0"),
+                                          e, k, cs, *FANO)
     for card, (lo, hi) in enumerate(((0, e // 2), (e // 2, e))):
         dev = torch.device("cuda", card)
         part = dke[:, lo * k:hi * k].to(dev).contiguous()
-        got = fano_cuda.fano_electrons_cuda(part, 21, lo, hi - lo, k, cs,
-                                            *FANO)
+        got = fano_cuda.fano_electrons_cuda(part, _fano_words(21, lo, dev),
+                                            hi - lo, k, cs, *FANO)
         assert got.device == dev
         assert torch.equal(got, _fano_plain(part, 21, lo, hi - lo, k, cs))
         assert torch.equal(got.cpu(), whole[:, lo * k:hi * k].cpu())
@@ -1226,3 +1290,202 @@ def test_fano_stage_on_the_card(cuda_device):
                         ({"plain": 1000 * e * k}, 0)]
     for name in ("meta_i32", "packed", "spyral_counts"):
         assert torch.equal(outs[0][name], outs[1][name]), name
+
+
+# ----------------------------------------------------------------------- #
+# the default step as one CUDA graph a budget key (step_graph.py)
+
+# the benchmark cells' tuned budgets (the result lines' driver.budgets)
+TUNED = {
+    "c16dd_d2_184MeV": dict(point_budget=1920, uniq_budget=24576,
+                            out_budget=2048, n_steps=2000),
+    "b10_3he_chain_24MeV": dict(point_budget=8192, uniq_budget=34816,
+                                out_budget=5120, n_steps=10000),
+}
+GRAPH_OUTPUTS = ("packed", "spyral_counts", "meta_i32")
+
+
+def _graph_sims(name, n_batches):
+    """A simulator of configuration ``name`` that graphs its step, one that
+    runs every step eagerly, and ``n_batches`` batches of 384 events."""
+    config, z, a, vertices, momenta, e = _config_events(name, 384 * n_batches)
+    sims = []
+    for graphed in (True, False):
+        sim = DetectorSimulator(
+            config, z, a, engine=EngineParams(
+                events_per_batch=384, n_time_steps=int(e["n_time_steps"]),
+                dt=float(e["dt"]), chunk_steps=int(e["chunk_steps"])),
+            device="cuda")
+        if not graphed:
+            sim._graphs = None
+        sims.append(sim)
+    return sims, vertices, momenta
+
+
+def _graph_batch(sim, vertices, momenta, start, n=384, seed=2**40 + 7,
+                 **budgets):
+    """One batch's compared outputs, copied to the host before the next
+    call overwrites a graph's."""
+    out = sim.simulate_batch(vertices[start:start + n],
+                             momenta[start:start + n], seed=seed,
+                             event_start=start, assemble=False, **budgets)
+    return {name: out[name].cpu() for name in GRAPH_OUTPUTS}
+
+
+@pytest.mark.parametrize("name", sorted(TUNED))
+def test_step_graph_replays_equal_the_eager_step(cuda_device, name):
+    """Four consecutive batches at a cell's tuned budgets (eager, capture,
+    replay, replay, each with its own first event id): packed rows, counts
+    and metadata bit for bit the eager step's; ``step.graph`` counts each
+    way, ``fano.draws`` and the kernels' launches every batch (K1 every
+    window of the physics window, gated on the card)."""
+    from attpc_engine_tpu_torch.utils import profiling
+
+    (sim, ref), vertices, momenta = _graph_sims(name, 4)
+    budgets = TUNED[name]
+    rec = profiling.PhaseTimes()
+    token = profiling.begin_run(rec)
+    k1, fano = transport_cuda.launches, fano_cuda.launches
+    try:
+        got = [_graph_batch(sim, vertices, momenta, start, **budgets)
+               for start in range(0, 4 * 384, 384)]
+    finally:
+        profiling.end_run(token)
+    windows = budgets["n_steps"] // sim.engine.chunk_steps
+    assert transport_cuda.launches - k1 == 4 * windows
+    assert fano_cuda.launches - fano == 4
+    assert rec.counters["step.graph"] == {"eager": 1, "capture": 1,
+                                          "replay": 2}
+    assert rec.counters["fano.draws"] == {
+        "kernel": 4 * budgets["n_steps"] * 384 * sim.k_tracks}
+    assert sim._graphs.held is not None
+    for i, start in enumerate(range(0, 4 * 384, 384)):
+        want = _graph_batch(ref, vertices, momenta, start, **budgets)
+        for out in GRAPH_OUTPUTS:
+            assert torch.equal(got[i][out], want[out]), (start, out)
+        assert int(want["spyral_counts"].sum()) > 384 * 100
+
+
+def test_step_graph_recaptures_at_new_budgets_and_skips_a_short_batch(
+        cuda_device):
+    """c16dd's tuned budgets, then the point budget doubled (a retry's): the
+    new key runs eagerly and drops the graph, its second batch captures;
+    a short batch runs eagerly. Each batch's rows the eager step's."""
+    from attpc_engine_tpu_torch.utils import profiling
+
+    name = "c16dd_d2_184MeV"
+    (sim, ref), vertices, momenta = _graph_sims(name, 5)
+    tuned = TUNED[name]
+    wide = {**tuned, "point_budget": 2 * tuned["point_budget"]}
+    plan = [(0, 384, tuned), (384, 384, tuned), (768, 384, tuned),
+            (1152, 384, wide), (0, 384, wide), (384, 384, wide),
+            (1536, 200, wide)]
+    rec = profiling.PhaseTimes()
+    token = profiling.begin_run(rec)
+    held = []
+    try:
+        got = []
+        for start, n, budgets in plan:
+            got.append(_graph_batch(sim, vertices, momenta, start, n,
+                                    **budgets))
+            h = sim._graphs.held
+            held.append(None if h is None else h.key[2])
+    finally:
+        profiling.end_run(token)
+    assert held == [None, 1920, 1920, None, 3840, 3840, None]
+    assert rec.counters["step.graph"] == {"eager": 3, "capture": 2,
+                                          "replay": 2}
+    for g, (start, n, budgets) in zip(got, plan):
+        want = _graph_batch(ref, vertices, momenta, start, n, **budgets)
+        for out in GRAPH_OUTPUTS:
+            assert torch.equal(g[out], want[out]), (start, n, out)
+
+
+def test_step_graph_stages_are_timed_on_every_replay(cuda_device):
+    """Under a profiler, each run of the graph gives the five stage spans
+    of its batch, each timed on the stream by the graph's own events."""
+    from attpc_engine_tpu_torch.utils import profiling
+
+    (sim, _), vertices, momenta = _graph_sims("c16dd_d2_184MeV", 4)
+    budgets = TUNED["c16dd_d2_184MeV"]
+    rec = profiling.PhaseTimes(cuda=torch.device("cuda"))
+    token = profiling.begin_run(rec)
+    try:
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]):
+            for start in range(0, 4 * 384, 384):
+                with profiling.phase_timer(rec, "dispatch", start):
+                    out = sim.simulate_batch(
+                        vertices[start:start + 384],
+                        momenta[start:start + 384], seed=1,
+                        event_start=start, assemble=False, **budgets)
+                out["meta_i32"].cpu()
+                rec.resolve()
+    finally:
+        profiling.end_run(token)
+    assert rec.counters["step.graph"] == {"eager": 1, "capture": 1,
+                                          "replay": 2}
+    stages = ("step.transport", "step.fano", "step.deposit", "step.merge",
+              "step.convert")
+    for name in stages:
+        spans = [s for s in rec.spans if s.name == name]
+        assert sorted(s.batch for s in spans) == [0, 384, 768, 1152], name
+        assert all(s.device_s is not None and s.device_s > 0
+                   for s in spans), name
+    assert rec._pending == []
+
+
+def test_step_graph_on_two_threads_gives_the_one_card_rows(cuda_device):
+    """``run_reader`` over two shards (two cards, or two card threads on
+    one card), each thread capturing and replaying its own graph on its
+    own stream, at fixed budgets: the one-card run's rows bit for bit,
+    with replays on every shard."""
+    from attpc_engine_tpu_torch.detector.simulator import run_reader
+
+    config, z, a, vertices, momenta, e = _config_events("c16dd_d2_184MeV",
+                                                        5 * 384)
+
+    class Reader:
+        n_events, proton_numbers, mass_numbers = 5 * 384, z, a
+
+        def read_range(self, lo, hi):
+            return vertices[lo:hi], momenta[lo:hi]
+
+        def close(self):
+            pass
+
+    class Writer:
+        def __init__(self):
+            self.seen = []
+
+        def write_spyral_pool(self, spyral, labels, counts, event_numbers,
+                              raw_counts=None):
+            self.seen.append((spyral.copy(), labels.copy(),
+                              np.asarray(counts).copy()))
+
+        def close(self):
+            pass
+
+    tuned = TUNED["c16dd_d2_184MeV"]
+    engine = EngineParams(events_per_batch=384, point_budget=1920,
+                          uniq_budget=tuned["uniq_budget"],
+                          out_budget=tuned["out_budget"], n_time_steps=2000,
+                          chunk_steps=500)
+    n = min(torch.cuda.device_count(), 2)
+    runs = []
+    for devices in ("cuda:0", [f"cuda:{k % n}" for k in range(2)]):
+        writer = Writer()
+        stats = run_reader(config, Reader(), writer, engine=engine, seed=9,
+                           show_progress=False, auto_tune=False,
+                           device=devices)
+        runs.append((writer.seen, stats["counters"]["step.graph"]))
+    (one, graphs_one), (two, graphs_two) = runs
+    assert graphs_one == {"eager": 1, "capture": 1, "replay": 3}
+    # each shard's simulator: one eager, one capture, three replays
+    assert graphs_two == {"eager": 2, "capture": 2, "replay": 6}
+    assert len(one) == len(two) == 5
+    for (s1, l1, c1), (s2, l2, c2) in zip(one, two):
+        np.testing.assert_array_equal(c1, c2)
+        np.testing.assert_array_equal(l1, l2)
+        np.testing.assert_array_equal(s1.view(np.int64), s2.view(np.int64))

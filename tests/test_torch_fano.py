@@ -30,7 +30,10 @@ from attpc_engine_tpu_torch.detector import (
     simulator,
 )
 from attpc_engine_tpu_torch.detector.deposition import fano_noise
-from attpc_engine_tpu_torch.detector.fano_cuda import fano_electrons_cuda
+from attpc_engine_tpu_torch.detector.fano_cuda import (
+    fano_electrons_cuda,
+    fano_words,
+)
 from attpc_engine_tpu_torch.nuclear import GasTarget
 from attpc_engine_tpu_torch.utils import profiling
 
@@ -98,8 +101,8 @@ def test_the_cpu_takes_the_plain_fano_stage_and_counts_it(noise,
 ])
 def test_the_fano_wrapper_refuses_what_the_kernel_cannot_take(case, reason):
     dke = torch.zeros((8, 6))
-    kw = dict(seed=1, event_start=0, n_events=3, tracks=2, chunk_steps=4,
-              w_value=W_VALUE, fano_factor=FANO)
+    kw = dict(words=torch.from_numpy(fano_words(1, 0)), n_events=3, tracks=2,
+              chunk_steps=4, w_value=W_VALUE, fano_factor=FANO)
     if case == "one axis":
         dke = dke.reshape(-1)
     elif case == "no tracks":

@@ -365,12 +365,11 @@ def test_one_device_keeps_its_names():
     assert routes and routes <= {"empty", "wide"} | {
         f"cluster-{n}" for n in sort_cuda.CLUSTER_SIZES}
     assert sites - {("merge_sort.rows", r) for r in routes} == {
-        ("syncs", "transport.window"), ("syncs", "pull-meta"),
-        ("fano.draws", "plain")}
+        ("syncs", "pull-meta"), ("fano.draws", "plain")}
     assert counters == {"syncs", "pinned_allocs", "pinned_bytes", "retries",
                         "batches", "merge_sort.lanes",
                         "merge_sort.width_lanes", "merge_sort.rows",
-                        "fano.draws"}
+                        "fano.draws", "step.graph"}
     assert {s.thread for s in rec.spans} == {"MainThread", "spyral-writer"}
 
 
@@ -398,9 +397,7 @@ def test_each_card_has_its_spans_and_sites():
             assert top.thread == s.thread
     c = stats["counters"]
     assert c["shard.events"] == {"card-0": 3, "card-1": 2}
-    assert set(c["syncs"]) == {"transport.window.card-0",
-                               "transport.window.card-1",
-                               "pull-meta.card-0", "pull-meta.card-1"}
+    assert set(c["syncs"]) == {"pull-meta.card-0", "pull-meta.card-1"}
     assert c["syncs"]["pull-meta.card-0"] == 2
     assert c == rec.traced
 

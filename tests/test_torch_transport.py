@@ -10,6 +10,7 @@ this plain version on the card by chip_smoke.py and tests/test_torch_cuda.py.
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from __graft_entry__ import _tiny_setup
@@ -114,3 +115,118 @@ def test_constants_round_once_to_f32():
         v = getattr(k, name)
         assert v == float(np.float32(v)), name
     assert k.clip_hi == float(np.float32(1024 - 1.001))
+
+
+# ----------------------------------------------------------------------- #
+# the windows' gate (the host's per-window live-track check, on the device)
+
+
+def _bench_events(name: str, n: int):
+    """``n`` events of a benchmark configuration (its own kinematics
+    seed) and the port's simulator of it, on the CPU."""
+    import importlib
+    import json
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1] / "port_bench"
+    if str(root) not in sys.path:
+        sys.path.insert(0, str(root))
+    inputs = importlib.import_module("pbench.inputs")
+    runner = importlib.import_module("pbench.runner")
+    from attpc_engine_tpu_torch.detector import DetectorSimulator
+
+    cfg = json.loads((root / "configs" / f"{name}.json").read_text())
+    events = inputs.Events(cfg, n, cfg["kinematics"]["seed"], "cpu")
+    sim = DetectorSimulator(runner.port_config(cfg), events.proton_numbers,
+                            events.mass_numbers, device="cpu")
+    return cfg, events, sim
+
+
+def _host_loop(pos0, gv0, s_idx, sim, n_steps, chunk):
+    """``integrate_tracks`` as it was: one host check of the live tracks
+    before each window, no window after the first that ends all dead."""
+    dp = sim.config.det_params
+    k = T.Rk4Constants.make(sim.species, float(dp.gas_target.density),
+                            float(dp.bfield), float(dp.efield), T.DT)
+    mass, q_m = T.track_constants(sim.species, s_idx)
+    pos, gv = pos0.clone(), gv0.clone()
+    alive = T.initial_alive(pos, gv, mass)
+    b = pos.shape[0]
+    out = (torch.zeros((n_steps, b, 3)), torch.zeros((n_steps, b)),
+           torch.zeros((n_steps, b), dtype=torch.bool))
+    for start in range(0, n_steps, chunk):
+        if not bool(alive.any()):
+            break
+        T.rk4_window_plain(pos, gv, alive, s_idx, mass, q_m, sim.species.dedx,
+                           *(o[start:start + chunk] for o in out), k,
+                           torch.tensor([1, 0], dtype=torch.int32))
+    return out
+
+
+@pytest.mark.parametrize("name", ["c16dd_d2_184MeV", "b10_3he_chain_24MeV"])
+def test_gated_windows_equal_the_host_loop(name):
+    """The benchmark configurations' committed events over their physics
+    window: every window is launched and each reads its gate, and the rows
+    are the old host loop's bit for bit; the windows after the batch died
+    stay zero."""
+    cfg, events, sim = _bench_events(name, 4)
+    e, k = 4, sim.k_tracks
+    n_steps, chunk = (int(cfg["engine"][key])
+                      for key in ("n_time_steps", "chunk_steps"))
+    p3 = events.momenta[:, sim.sim_indices, :3]
+    gv0 = torch.from_numpy((p3 / sim.track_masses[None, :, None])
+                           .astype(np.float32).reshape(-1, 3))
+    pos0 = torch.from_numpy(np.repeat(events.vertices.astype(np.float32), k,
+                                      axis=0))
+    s_idx = torch.arange(k, dtype=torch.int32).repeat(e)
+    dp = sim.config.det_params
+    got = T.integrate_tracks(pos0, gv0, s_idx, sim.species,
+                             density=float(dp.gas_target.density),
+                             bfield=float(dp.bfield), efield=float(dp.efield),
+                             n_steps=n_steps, chunk_steps=chunk)
+    ref = _host_loop(pos0, gv0, s_idx, sim, n_steps, chunk)
+    for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+    alive = got[2]
+    live_windows = alive.reshape(-1, chunk, e * k).any(dim=(1, 2))
+    last = int(np.flatnonzero(live_windows.numpy()).max())
+    # the batch died inside the window, and later windows wrote nothing
+    assert last + 1 < n_steps // chunk
+    dead = slice((last + 1) * chunk, None)
+    assert not alive[dead].any() and (got[1][dead] == 0).all()
+    assert (got[0][dead] == 0).all()
+
+
+def test_a_closed_gate_writes_nothing_and_an_open_one_passes_it_on():
+    """``rk4_window_plain``'s gate: gate[0] == 0 leaves the outputs and the
+    carry as they were; an open gate runs the window and ORs 1 into
+    gate[1] where a lane is alive at its end, else leaves it 0."""
+    sim, pos0, gv0, s_idx = _inputs(2, 40, 5)
+    species = _species(sim)
+    kc = T.Rk4Constants.make(species, dt=T.DT, **_fields(sim))
+    mass, q_m = T.track_constants(species, torch.from_numpy(s_idx))
+    b = len(s_idx)
+
+    def window(gate, dead=False):
+        pos, gv = torch.from_numpy(pos0.copy()), torch.from_numpy(gv0.copy())
+        alive = T.initial_alive(pos, gv, mass)
+        if dead:
+            alive[:] = False
+        out = (torch.full((40, b, 3), 7.0), torch.full((40, b), 7.0),
+               torch.ones((40, b), dtype=torch.bool))
+        before = [t.clone() for t in (pos, gv, alive, *out)]
+        T.rk4_window_plain(pos, gv, alive, torch.from_numpy(s_idx), mass,
+                           q_m, species.dedx, *out, kc, gate)
+        return before, [pos, gv, alive, *out]
+
+    gate = torch.tensor([0, 0], dtype=torch.int32)
+    before, after = window(gate)
+    assert all(torch.equal(x, y) for x, y in zip(before, after))
+    assert gate.tolist() == [0, 0]
+    gate = torch.tensor([1, 0], dtype=torch.int32)
+    before, after = window(gate)
+    assert after[2].any() and gate.tolist() == [1, 1]
+    gate = torch.tensor([1, 0], dtype=torch.int32)
+    _, after = window(gate, dead=True)
+    assert not after[5].any() and gate.tolist() == [1, 0]

@@ -466,6 +466,9 @@ def main() -> int:
     if tuned:
         engine.update(tuned_budgets())
     sim, vert, mom = chip_smoke.flagship_simulator("cuda", **engine)
+    # every step eager: the stages are timed by the ranges of their Python
+    # calls, which a replay of the step's CUDA graph does not make
+    sim._graphs = None
     b = chip_smoke.BATCH
 
     def step(i):
