@@ -8,14 +8,20 @@ path:
 
  -> cut into contiguous shards, one a device (``_shards``: one shard on
     one device), each with its own copy of the budgets
- -> each shard dispatched, its metadata pulled (``StepMeta``), run again
-    while a budget overflows, and its rows pulled on its device by the
-    run's output (``_Output``: packed rows, rows assembled on the device,
-    or the reference protocol's raw clouds, chosen once a run)
+ -> each shard dispatched, with the outputs its pull reads copied out of
+    the step's and its metadata on its way to the host behind them
+    (``_Flight``)
+ -> once the run's budgets are tuned, left in flight: the next batch is
+    read and dispatched before the shard is pulled, so that the card runs
+    a step while the host reads, stages and launches the next
+ -> each shard pulled: its metadata read (``StepMeta``), run again while
+    a budget overflows, and its rows pulled on its device by the run's
+    output (``_Output``: packed rows, rows assembled on the device, or the
+    reference protocol's raw clouds, chosen once a run)
  -> the shards' rows copied to the host end to end (``_HostCopies``), and
     the budgets grown to the largest a shard reached
- -> the batch handed to the writer thread once the next batch's work is
-    queued; the thread finishes the copies and writes.
+ -> the batch handed to the writer thread once the next batch after it
+    is dispatched; the thread finishes the copies and writes.
 
 The number of devices decides only who runs a shard: on one device the
 main thread, under the ``dispatch`` span; over several, each card's own
@@ -262,6 +268,26 @@ def _shards(n: int, n_devices: int) -> list[tuple[int, int]]:
     return [(lo, min(lo + size, n)) for lo in range(0, n, size)]
 
 
+@dataclass(eq=False)
+class _Flight:
+    """A shard dispatched and not yet pulled: what dispatched it (to run it
+    again where a budget overflows), the outputs its pull reads, copied out
+    of the step's (``_Output.keep``), and its ``meta_i32`` on its way to
+    the host: ``meta`` (page-locked on a card) holds it once ``ready``
+    (None off the card) has passed."""
+
+    k: int
+    vertices: np.ndarray
+    momenta: np.ndarray
+    start: int
+    batch: int
+    budgets: dict
+    span: str
+    kept: dict
+    meta: torch.Tensor
+    ready: torch.cuda.Event | None
+
+
 @dataclass
 class _Shard:
     """A shard's result: its metadata, its rows as ``_Output.pull`` gives
@@ -288,18 +314,27 @@ class _Batch:
 
 class _Output:
     """The writer's protocol, chosen once a run (``_output``): whether the
-    step pools each event's raw cloud (``compact``), what a shard's rows
-    are pulled as on its device once its metadata shows no overflow
-    (``pull``, on the shard's thread), how a batch's shards' rows leave
-    for the host (``send``, on the main thread) and how they are written
-    (``write``, on the writer thread)."""
+    step pools each event's raw cloud (``compact``), which of the step's
+    outputs a shard's pull reads (``reads``, kept by ``keep`` at its
+    dispatch), what a shard's rows are pulled as on its device once its
+    metadata shows no overflow (``pull``, on the shard's thread), how a
+    batch's shards' rows leave for the host (``send``, on the main thread)
+    and how they are written (``write``, on the writer thread)."""
 
     compact = False
+    reads = ("packed", "spyral_counts")
 
     def __init__(self, writer, config: Config, seed: int, times: PhaseTimes,
                  copies: _HostCopies):
         self.writer, self.config, self.seed = writer, config, seed
         self.times, self.copies = times, copies
+
+    def keep(self, out: dict) -> dict:
+        """The outputs ``pull`` reads, copied on the current stream: the
+        next dispatch comes before this one's pull, and a replay of the
+        step's graph overwrites the graph's own outputs
+        (``step_graph.py``)."""
+        return {name: out[name].clone() for name in self.reads}
 
     def send(self, parts: list, sites: list, batch: int) -> tuple:
         """Start the copies to the host of each kind of a batch's rows,
@@ -313,11 +348,10 @@ class _PackedRows(_Output):
     """A writer of packed rows (``write_packed``: SpyralWriterProc, whose
     child assembles them on the host)."""
 
-    def pull(self, sim, out, meta: StepMeta, start: int, batch: int):
-        # a copy on the current stream: the side stream's copy to the host
-        # may run after the next replay of the step's graph overwrites the
-        # graph's rows (step_graph.py)
-        return (out["packed"][:meta.kept].clone(),)
+    reads = ("packed",)
+
+    def pull(self, sim, kept, meta: StepMeta, start: int, batch: int):
+        return (kept["packed"][:meta.kept],)
 
     def write(self, b: _Batch) -> None:
         with phase_timer(self.times, "pull-packed", b.start):
@@ -333,10 +367,10 @@ class _AssembledRows(_Output):
     assembled on the device, lent to the writer as views of page-locked
     buffers."""
 
-    def pull(self, sim, out, meta: StepMeta, start: int, batch: int):
+    def pull(self, sim, kept, meta: StepMeta, start: int, batch: int):
         with phase_timer(self.times, "assemble-device", batch):
             return sim.assemble_device(
-                out["packed"][:meta.kept], out["spyral_counts"],
+                kept["packed"][:meta.kept], kept["spyral_counts"],
                 torch.arange(start, start + len(meta.counts),
                              device=sim.device),
                 self.seed)
@@ -360,16 +394,17 @@ class _RawClouds(_Output):
     pooled by the step and pulled to the host on the shard's thread."""
 
     compact = True
+    reads = ("counts", "pads", "tbs", "charges", "labels", "cloud_overflow")
 
-    def pull(self, sim, out, meta: StepMeta, start: int, batch: int):
+    def pull(self, sim, kept, meta: StepMeta, start: int, batch: int):
         n = len(meta.counts)
         with phase_timer(self.times, "pull-cloud", batch), device_wait():
-            counts = out["counts"][:n].cpu().numpy()
+            counts = kept["counts"][:n].cpu().numpy()
             total = int(counts.sum())
-            raw = torch.stack([out[k][:total].double()
+            raw = torch.stack([kept[k][:total].double()
                                for k in ("pads", "tbs", "charges")],
                               dim=-1).cpu().numpy()
-            labels = out["labels"][:total].long().cpu().numpy()
+            labels = kept["labels"][:total].long().cpu().numpy()
         return raw, labels, counts
 
     def send(self, parts: list, sites: list, batch: int) -> tuple:
@@ -400,9 +435,10 @@ class _Run:
     """One ``run_reader`` call's batch loop and the state it shares
     between the main thread, the card threads and the writer thread: the
     simulators (one a device), the budgets, the output, the host copies,
-    the batch on its way to the writer and the writer thread's queue and
-    first exception. ``start`` starts the threads and ``close`` stops
-    them."""
+    each device's free buffers for its steps' metadata, the batch in
+    flight, the batch on its way to the writer and the writer thread's
+    queue and first exception. ``start`` starts the threads and ``close``
+    stops them."""
 
     def __init__(self, config: Config, reader, writer, indices,
                  engine: EngineParams, seed: int, auto_tune: bool,
@@ -425,6 +461,10 @@ class _Run:
         )
         self.tuned = not auto_tune
         self.stats = {"events": 0, "rows": 0}
+        # each device's free host buffers for its steps' metadata: a device
+        # holds at most two flights, the one pulled and the one after it
+        self.meta_free: list[list[torch.Tensor]] = [[] for _ in devices]
+        self.flying: list[_Flight] | None = None
         self.pending: _Batch | None = None
         self.queue: queue.Queue = queue.Queue(maxsize=2)
         self.errors: list[BaseException] = []
@@ -452,77 +492,128 @@ class _Run:
         self.writer_thread.start()
 
     def batch(self, vertices, momenta, start: int) -> None:
-        """Batch ``start``: its shards run, their rows on their way to the
-        host, and after the first batch the budgets retightened to its
-        multiplicities."""
-        shards = self._run_shards(vertices, momenta, start)
-        for shard in shards:
-            for key, value in shard.budgets.items():
-                self.budgets[key] = max(self.budgets[key], value)
-        meta = StepMeta.join([s.meta for s in shards])
-        rows = self.output.send([s.rows for s in shards], self.copy_sites,
-                                start)
-        self.pending = _Batch(start, meta, rows)
-        self.stats["events"] += len(meta.counts)
-        self.stats["rows"] += meta.kept
-        if not self.tuned:
-            self._retighten(meta)
-            self.tuned = True
-
-    def _run_shards(self, vertices, momenta, batch: int) -> list[_Shard]:
-        """Batch ``batch``'s shards, one a device, each with its own copy
-        of the budgets, run and pulled; the previous batch goes to the
-        writer thread once their work is queued. On one device the main
-        thread runs the shard under the ``dispatch`` span; over several,
-        each card's thread runs its own (``_shard_step``)."""
-        jobs = [(k, vertices[lo:hi], momenta[lo:hi], batch + lo, batch,
+        """Batch ``start``: its shards dispatched and, once the budgets are
+        tuned, left in flight while the batch dispatched before it is
+        pulled and its rows start for the host. The probe batch is pulled
+        at once and the budgets retightened to its multiplicities, before
+        any other dispatch. ``driver.ahead`` counts the batch at
+        ``queued`` where the batch before it was still in flight, else at
+        ``serial``."""
+        held, self.flying = self.flying, None
+        self.times.count("driver.ahead",
+                         "serial" if held is None else "queued")
+        jobs = [(vertices[lo:hi], momenta[lo:hi], start + lo, start,
                  dict(self.budgets))
-                for k, (lo, hi) in enumerate(_shards(len(vertices),
-                                                     len(self.sims)))]
-        if self.cards is None:
-            (job,) = jobs
-            return [self._step(*job, "dispatch", queued=self._flush)]
-        for job in jobs:
-            self.cards.submit(job[0], self._shard_step, *job)
-        self._flush()
-        return self.cards.collect(len(jobs))
+                for lo, hi in _shards(len(vertices), len(self.sims))]
+        flights, shards = self._turns(jobs, held)
+        if held is not None:
+            self._send(held[0].batch, shards)
+        if self.tuned:
+            self.flying = flights
+            return
+        _, shards = self._turns([], flights)
+        self._retighten(self._send(start, shards))
+        self.tuned = True
 
-    def _shard_step(self, k: int, vertices, momenta, start: int, batch: int,
-                    budgets: dict) -> _Shard:
-        """Card k's shard of batch ``batch``, on card k's thread: a
-        ``shard.step`` span timed on card k's stream around the shard's
-        ``shard.dispatch`` and its pull, and under a profiler its turns
-        (``shard.turn``)."""
+    def _turns(self, jobs: list, held: list[_Flight] | None):
+        """Each device's turn: its shard of ``jobs`` dispatched, then its
+        shard of the batch in flight (``held``) pulled; the batch on its
+        way to the writer goes to the writer thread in between. On one
+        device the main thread takes the turn, dispatching under the
+        ``dispatch`` span; over several, each card's thread takes its own
+        (``_card_turn``). Returns (the new flights, the pulled shards),
+        each in shard order."""
+        held = held or []
+        if self.cards is None:
+            flights = [self._dispatch(0, *job, "dispatch") for job in jobs]
+            self._flush()
+            shards = [self._pull(f, flights[0] if flights else None)
+                      for f in held]
+            return flights, shards
+        n = max(len(jobs), len(held))
+        for k in range(n):
+            self.cards.submit(k, self._card_turn, k,
+                              jobs[k] if k < len(jobs) else None,
+                              held[k] if k < len(held) else None)
+        self._flush()
+        answers = self.cards.collect(n)
+        return ([f for f, _ in answers if f is not None],
+                [s for _, s in answers if s is not None])
+
+    def _card_turn(self, k: int, job, held: _Flight | None):
+        """Card k's turn, on card k's thread: a ``shard.step`` span of the
+        batch it dispatches (else of the one it pulls), timed on card k's
+        stream, around the ``shard.dispatch`` of its shard of the batch and
+        the pull of the shard in flight on it, and under a profiler its
+        turns (``shard.turn``)."""
+        batch = job[3] if job is not None else held.batch
         with phase_timer(self.times, "shard.step", batch, device_time=True), \
                 card_turns(self.times, batch):
-            self.times.count("shard.events", f"card-{k}", len(vertices))
-            return self._step(k, vertices, momenta, start, batch, budgets,
-                              "shard.dispatch")
+            flight = shard = None
+            if job is not None:
+                self.times.count("shard.events", f"card-{k}", len(job[0]))
+                flight = self._dispatch(k, *job, "shard.dispatch")
+            if held is not None:
+                shard = self._pull(held, flight)
+            return flight, shard
 
-    def _step(self, k: int, vertices, momenta, start: int, batch: int,
-              budgets: dict, span: str, queued=None) -> _Shard:
+    def _dispatch(self, k: int, vertices, momenta, start: int, batch: int,
+                  budgets: dict, span: str) -> _Flight:
         """Events [start, start + n) of batch ``batch`` dispatched on
-        device k under ``span`` and pulled, again while a budget
-        overflows, with every overflowing budget of ``budgets`` doubled
-        (the window climbed), at most 8 times; ``queued`` runs once, after
-        the first dispatch."""
-        sim, eng = self.sims[k], self.engine
-        for _attempt in range(8):
-            with phase_timer(self.times, span, batch):
-                # through the instance at every dispatch: a caller may
-                # replace the class's method while the run goes on
-                out = sim.simulate_batch(
-                    vertices, momenta, seed=self.seed, event_start=start,
-                    assemble=False, point_budget=budgets["point"],
-                    uniq_budget=budgets["uniq"], out_budget=budgets["out"],
-                    n_steps=budgets["steps"], compact=self.output.compact,
-                    cloud_cap=budgets["cloud"],
-                )
-            if queued is not None:
-                queued()
-                queued = None
+        device k under ``span`` at ``budgets``; behind the step, on the
+        current stream, the outputs the pull reads copied out
+        (``_Output.keep``) and ``meta_i32`` copied to the host."""
+        sim = self.sims[k]
+        with phase_timer(self.times, span, batch):
+            # through the instance at every dispatch: a caller may replace
+            # the class's method while the run goes on
+            out = sim.simulate_batch(
+                vertices, momenta, seed=self.seed, event_start=start,
+                assemble=False, point_budget=budgets["point"],
+                uniq_budget=budgets["uniq"], out_budget=budgets["out"],
+                n_steps=budgets["steps"], compact=self.output.compact,
+                cloud_cap=budgets["cloud"],
+            )
+            kept = self.output.keep(out)
+            meta, ready = self._meta_to_host(k, out["meta_i32"])
+        return _Flight(k, vertices, momenta, start, batch, budgets, span,
+                       kept, meta, ready)
+
+    def _meta_to_host(self, k: int, src: torch.Tensor):
+        """``src``, a step's ``meta_i32``, copied behind the work queued on
+        the current stream into a free host buffer of device k of its shape
+        (page-locked on a card) or a new one: (the buffer, the copy's event,
+        None off the card)."""
+        free, cuda = self.meta_free[k], src.device.type == "cuda"
+        for i, buf in enumerate(free):  # by position, as in _HostCopies
+            if buf.shape == src.shape:
+                meta = free.pop(i)
+                break
+        else:
+            meta = torch.empty(src.shape, dtype=src.dtype, pin_memory=cuda)
+            if cuda:
+                self.times.count("pinned_allocs")
+                self.times.count("pinned_bytes", n=meta.nbytes)
+        meta.copy_(src, non_blocking=True)
+        if not cuda:
+            return meta, None
+        ready = torch.cuda.Event()
+        ready.record(torch.cuda.current_stream(src.device))
+        return meta, ready
+
+    def _pull(self, flight: _Flight, behind: _Flight | None) -> _Shard:
+        """A shard in flight pulled: its metadata read, and while a budget
+        overflows, the shard run again with every overflowing budget of
+        its own doubled (the window climbed), at most 8 runs in all; then
+        its rows pulled by the output. ``behind``: the shard dispatched
+        after it on its device, if any, which a first retry waits for (a
+        retry's new budgets drop the step's graph, whose replay may still
+        be queued: ``step_graph.py``)."""
+        sim, eng = self.sims[flight.k], self.engine
+        budgets = flight.budgets
+        for attempt in range(8):
             try:
-                meta = self._pull_meta(sim, out, budgets, batch)
+                meta = self._pull_meta(sim, flight)
             except PoolOverflow as ov:
                 for kind in ov.kinds:
                     self.times.count("retries", kind)
@@ -534,30 +625,61 @@ class _Run:
                         budgets[kind] *= 2
                         if budgets[kind] > 2**21:
                             raise
+                if attempt == 7:
+                    break
+                if behind is not None:
+                    self.times.count("syncs", "retry")
+                    if behind.ready is not None:
+                        with device_wait():
+                            behind.ready.synchronize()
+                    behind = None
+                flight = self._dispatch(flight.k, flight.vertices,
+                                        flight.momenta, flight.start,
+                                        flight.batch, budgets, flight.span)
                 continue
-            rows = self.output.pull(sim, out, meta, start, batch)
+            rows = self.output.pull(sim, flight.kept, meta, flight.start,
+                                    flight.batch)
             return _Shard(meta, rows, budgets)
         raise RuntimeError("pool budgets failed to converge")
 
-    def _pull_meta(self, sim, out, budgets: dict, batch: int) -> StepMeta:
-        """A step's metadata (a sync, before the next dispatch), its merge
-        sort counted, its overflows raised as PoolOverflow."""
-        with phase_timer(self.times, "pull-meta", batch):
+    def _pull_meta(self, sim, flight: _Flight) -> StepMeta:
+        """A flight's metadata (a wait for its copy to the host, which the
+        step dispatched after it does not hold up), its merge sort
+        counted, its overflows raised as PoolOverflow."""
+        with phase_timer(self.times, "pull-meta", flight.batch):
             self.times.count("syncs", "pull-meta")
-            with device_wait():
-                meta_i32 = out["meta_i32"].cpu().numpy()
+            if flight.ready is not None:
+                with device_wait():
+                    flight.ready.synchronize()
+            meta_i32 = flight.meta.numpy().copy()
+            self.meta_free[flight.k].append(flight.meta)
         self.times.resolve()
         cloud_overflow = 0
-        if "cloud_overflow" in out:
+        if "cloud_overflow" in flight.kept:
             self.times.count("syncs", "cloud-overflow")
             with device_wait():
-                cloud_overflow = int(out["cloud_overflow"])
+                cloud_overflow = int(flight.kept["cloud_overflow"])
         meta = StepMeta.decode(meta_i32, cloud_overflow)
-        sim.count_merge_sort(meta, budgets["point"])
-        kinds = overflow_kinds(meta, budgets["steps"],
+        sim.count_merge_sort(meta, flight.budgets["point"])
+        kinds = overflow_kinds(meta, flight.budgets["steps"],
                                self.engine.n_time_steps)
         if kinds:
             raise PoolOverflow(kinds)
+        return meta
+
+    def _send(self, start: int, shards: list[_Shard]) -> StepMeta:
+        """Batch ``start``'s pulled shards: the budgets grown to the
+        largest a shard reached, the rows on their way to the host and the
+        batch on its way to the writer (``pending``); its metadata."""
+        for shard in shards:
+            for key, value in shard.budgets.items():
+                self.budgets[key] = max(self.budgets[key], value)
+        meta = StepMeta.join([s.meta for s in shards])
+        rows = self.output.send([s.rows for s in shards], self.copy_sites,
+                                start)
+        self.pending = _Batch(start, meta, rows)
+        self.stats["events"] += len(meta.counts)
+        self.stats["rows"] += meta.kept
         return meta
 
     def _retighten(self, meta: StepMeta) -> None:
@@ -597,8 +719,13 @@ class _Run:
                 self.errors.append(exc)
 
     def drain(self) -> None:
-        """Hand the last batch to the writer thread, wait for every write,
-        and raise the writer's first exception."""
+        """Pull the batch in flight, hand the last batches to the writer
+        thread, wait for every write, and raise the writer's first
+        exception."""
+        if self.flying is not None:
+            held, self.flying = self.flying, None
+            _, shards = self._turns([], held)
+            self._send(held[0].batch, shards)
         self._flush()
         self.queue.put(None)
         self.writer_thread.join()
@@ -762,12 +889,20 @@ def run_simulation(
     a budget runs again with every overflowing budget doubled (the window
     climbed), at most 8 times; over several devices only the shard that
     overflowed runs again, the run's budgets, shared by the shards, grow
-    to the largest a shard reached before the next batch is handed out,
-    and the probe's retightening takes the largest multiplicities of the
+    to the largest a shard reached once the batch is pulled, and the
+    probe's retightening takes the largest multiplicities of the
     shards. Every draw depends only on the event's
     global id, so a retry or a tuned window reproduces the same physics,
     and a run resumed with the same seed at ``start_event`` reproduces the
     events it would have produced, for any ``events_per_batch``.
+
+    Once the budgets are tuned (after the probe, or from the first batch
+    without ``auto_tune``), one batch is in flight: each batch is
+    dispatched before the one before it is pulled, so that the device
+    runs a step while the host pulls, reads and stages. A batch keeps the
+    budgets it was dispatched at: where the batch before it overflows and
+    runs again, the budgets grow for the batches after it, and it runs
+    again only where it overflows itself.
 
     Each batch's rows are assembled on ``device`` once its metadata shows
     no overflow (``DetectorSimulator.assemble_device``: on the card one
@@ -795,8 +930,9 @@ def run_simulation(
     "counters", always kept: "syncs", the host's waits on the device by
     site ("pull-meta": a batch's metadata; "cloud-overflow": the raw cloud's
     pool overflow; "assemble": ``simulate_batch(assemble=True)``;
-    "copy-finish": the writer thread's wait for a batch's copy; over
-    several devices each site carries the card's name,
+    "copy-finish": the writer thread's wait for a batch's copy; "retry":
+    before a batch runs again, the wait for the batch dispatched after it
+    on its device; over several devices each site carries the card's name,
     "pull-meta.card-1", "copy-finish.card-1");
     "pinned_allocs" and "pinned_bytes", the page-locked buffers allocated
     for the copies to the host; "retries", the batches run again, by the
@@ -815,7 +951,10 @@ def run_simulation(
     (``fano_cuda``, on the card) or "plain" (``fano_noise``, or the
     caller's noise); "step.graph", the steps on the card that may run as a
     CUDA graph (``step_graph.py``), by how they ran: "eager" (the first at
-    its budgets), "capture" (the second, captured and run) or "replay".
+    its budgets), "capture" (the second, captured and run) or "replay";
+    "driver.ahead", the batches by what was in flight at their dispatch:
+    "queued" (the batch before, not yet pulled) or "serial" (nothing: the
+    probe, the batch after it, a run's first batch).
 
     "spans", while a torch profiler records (``utils.trace_to``; empty
     without one): each span's host seconds, count and, for a step stage
@@ -830,10 +969,12 @@ def run_simulation(
     ``utils.profiling.last_run()`` holds the last call's spans themselves.
     Over several devices each card's thread (its span's ``thread``,
     "card-<k>") has, for each batch, in place of "dispatch": a
-    "shard.step" span, timed on the card's stream from before the shard's
-    dispatch to after its assembly, around "shard.dispatch" (the shard's
-    ``simulate_batch``, with the stages inside it timed on the card's
-    stream), "pull-meta" and "assemble-device", and its "shard.turn"
+    "shard.step" span of the batch, timed on the card's stream from before
+    the shard's dispatch to after the assembly of the shard in flight,
+    around "shard.dispatch" (the shard's ``simulate_batch``, with the
+    stages inside it timed on the card's stream), and the "pull-meta" and
+    "assemble-device" of the shard in flight (of the batch before, once
+    the budgets are tuned), and its "shard.turn"
     spans, one for each stretch of the thread's host work between its
     waits on the card and for its turn (``utils.profiling``), timed on the
     card's stream from the turn's start to the end of the work launched in

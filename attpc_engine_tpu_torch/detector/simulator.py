@@ -626,7 +626,10 @@ class DetectorSimulator:
         second call in a row at the same events and budgets
         (``step_graph.py``): its tensors are then the graph's, which the
         next such call overwrites on the current stream. Read them, or
-        queue what reads them on the current stream, before that call.
+        queue what reads them on the current stream, before that call:
+        ``run_reader``, which dispatches a batch before it pulls the one
+        before, queues copies of what it pulls behind each dispatch
+        (``driver._Output.keep``).
         """
         eng = self.engine
         e = len(vertices)

@@ -30,8 +30,8 @@ run. The kernels' ``launches`` counters of the wrappers (``transport_cuda``,
 The outputs of a replay are the graph's static tensors: the next replay at
 the key overwrites them once the stream reaches it, so a caller reads them,
 or queues on the current stream the work that reads them, before its next
-call (``driver.py`` does; ``_PackedRows.pull`` clones the rows its side
-stream copies).
+call (``driver.py`` queues copies of what it pulls behind each dispatch,
+as it dispatches the next batch before it pulls this one).
 
 The capture runs on a side stream of the card in
 ``capture_error_mode="thread_local"``, so that the host work of other

@@ -90,7 +90,7 @@ def _new_counters() -> dict:
     return {"syncs": {}, "pinned_allocs": 0, "pinned_bytes": 0,
             "retries": {}, "batches": 0, "merge_sort.lanes": 0,
             "merge_sort.width_lanes": 0, "merge_sort.rows": {},
-            "fano.draws": {}, "step.graph": {}}
+            "fano.draws": {}, "step.graph": {}, "driver.ahead": {}}
 
 
 @dataclass(eq=False)

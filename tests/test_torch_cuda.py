@@ -1489,3 +1489,81 @@ def test_step_graph_on_two_threads_gives_the_one_card_rows(cuda_device):
         np.testing.assert_array_equal(c1, c2)
         np.testing.assert_array_equal(l1, l2)
         np.testing.assert_array_equal(s1.view(np.int64), s2.view(np.int64))
+
+
+# ----------------------------------------------------------------------- #
+# the driver with one batch in flight (driver.py)
+
+
+@pytest.mark.parametrize("threads", [1, 2], ids=["one_card", "card_threads"])
+def test_run_reader_keeps_a_batch_in_flight_on_the_card(cuda_device,
+                                                        threads):
+    """``run_reader`` over twelve batches of c16dd's events at its tuned
+    budgets, each batch dispatched (a replay of the step's graph from the
+    third) before the batch before it is pulled: every batch's assembled
+    rows bit for bit the eager step's of that batch (assembled by the
+    same kernel with the batch's global event ids), in order, and 11 of
+    the 12 batches counted ``queued`` at ``driver.ahead`` (the first has
+    nothing in flight). With ``card_threads`` two card threads (two
+    cards, or both on one card) share each batch."""
+    from attpc_engine_tpu_torch.detector.simulator import run_reader
+
+    name, n_batches, seed = "c16dd_d2_184MeV", 12, 2**40 + 7
+    config, z, a, vertices, momenta, e = _config_events(name,
+                                                        n_batches * 384)
+
+    class Reader:
+        n_events, proton_numbers, mass_numbers = n_batches * 384, z, a
+
+        def read_range(self, lo, hi):
+            return vertices[lo:hi], momenta[lo:hi]
+
+        def close(self):
+            pass
+
+    class Writer:
+        def __init__(self):
+            self.seen = []
+
+        def write_spyral_pool(self, spyral, labels, counts, event_numbers,
+                              raw_counts=None):
+            self.seen.append((spyral.copy(), labels.copy(),
+                              np.asarray(counts).copy(),
+                              np.asarray(event_numbers).copy()))
+
+        def close(self):
+            pass
+
+    tuned = TUNED[name]
+    engine = EngineParams(events_per_batch=384, n_time_steps=2000,
+                          dt=float(e["dt"]), chunk_steps=500,
+                          point_budget=tuned["point_budget"],
+                          uniq_budget=tuned["uniq_budget"],
+                          out_budget=tuned["out_budget"])
+    n = min(torch.cuda.device_count(), 2)
+    devices = ("cuda:0" if threads == 1
+               else [f"cuda:{k % n}" for k in range(threads)])
+    writer = Writer()
+    stats = run_reader(config, Reader(), writer, engine=engine, seed=seed,
+                       show_progress=False, auto_tune=False, device=devices)
+    c = stats["counters"]
+    assert c["driver.ahead"] == {"serial": 1, "queued": n_batches - 1}
+    assert c["driver.ahead"]["queued"] / n_batches >= 0.9
+    assert c["retries"] == {} and c["step.graph"]["replay"] >= 9
+    ref = DetectorSimulator(config, z, a, engine=engine, device="cuda")
+    ref._graphs = None
+    assert len(writer.seen) == n_batches
+    for b, (spyral, labels, counts, events) in enumerate(writer.seen):
+        lo = b * 384
+        out = ref.simulate_batch(vertices[lo:lo + 384],
+                                 momenta[lo:lo + 384], seed=seed,
+                                 event_start=lo, assemble=False, **tuned)
+        total = int(out["spyral_counts"].sum())
+        rs, rl = ref.assemble_device(
+            out["packed"][:total], out["spyral_counts"],
+            torch.arange(lo, lo + 384, device="cuda"), seed)
+        np.testing.assert_array_equal(events, np.arange(lo, lo + 384))
+        np.testing.assert_array_equal(counts,
+                                      out["spyral_counts"].cpu().numpy())
+        np.testing.assert_array_equal(_bits(spyral), _bits(rs.cpu().numpy()))
+        np.testing.assert_array_equal(labels, rl.cpu().numpy())

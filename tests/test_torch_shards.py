@@ -7,7 +7,8 @@ thread of its own. On the CPU (``device=["cpu"] * k``), what must hold:
   packed rows, each event's raw cloud), for two and four shards and on a
   short tail batch;
 - a shard that overflows its point budget runs again alone, on its own
-  device, and later batches start from the grown budget (the decay chain);
+  device, and the batches dispatched after it is pulled start from the
+  grown budget (the decay chain);
 - a sharded run agrees with the benchmark's plain reference
   (``port_bench/benchref/detector/plain.py``) within ``chain.discard``'s
   limits;
@@ -246,11 +247,12 @@ def test_a_shard_that_overflows_runs_again_alone(bench, chain,
                                                  monkeypatch):
     """Three batches of the chain over two shards, from a point budget that
     batch 0's first shard fits and its second does not: only the second
-    runs again, at twice the budget, on its own card's thread, and batches
-    1 and 2 are handed out at the grown budget. The writer sees the
-    one-device run's rows, whose whole first batch ran again. (The merged
-    windows of the chain's events need more than the default uniq
-    budget.)"""
+    runs again, at twice the budget, on its own card's thread; batch 1,
+    dispatched before batch 0 is pulled, keeps the first budget and each
+    of its shards runs again only where it overflows that itself; batch 2
+    is handed out at the grown budget. The writer sees the one-device
+    run's rows, whose whole first batch ran again. (The merged windows of
+    the chain's events need more than the default uniq budget.)"""
     ids = np.r_[0:4, 8:16]
     engine = dict(n_time_steps=2000, chunk_steps=500, events_per_batch=4,
                   uniq_budget=32768)
@@ -268,14 +270,16 @@ def test_a_shard_that_overflows_runs_again_alone(bench, chain,
     budget = min(peaks[0])
     assert budget < max(peaks[0])
     expected = []
-    for b, handed in enumerate((budget, 2 * budget, 2 * budget)):
+    for b, handed in enumerate((budget, budget, 2 * budget)):
         for k in range(2):
             expected.append((f"card-{k}", 4 * b + 2 * k, handed))
             if peaks[b][k] > handed:
                 assert peaks[b][k] <= 2 * handed
                 expected.append((f"card-{k}", 4 * b + 2 * k, 2 * handed))
     assert len([c for c in expected if c[1] < 4]) == 3  # one shard again
-    assert len(expected) == 7  # and no other
+    # batch 1's first shard again, as it overflows the first budget, and
+    # no other
+    assert [c[1] for c in expected if c[2] > budget] == [2, 4, 8, 10]
     calls = []
     real = DetectorSimulator.simulate_batch
 
@@ -296,8 +300,11 @@ def test_a_shard_that_overflows_runs_again_alone(bench, chain,
     one = PoolWriter()
     ref = _run(one, "cpu", _chain_reader(chain, ids), small,
                auto_tune=False)
-    assert [c[2] for c in calls] == [budget, 2 * budget, 2 * budget,
-                                     2 * budget]
+    # batch 1 is dispatched at the first budget before batch 0 runs again,
+    # and runs again itself where one of its events needs more
+    again = [2 * budget] if max(peaks[1]) > budget else []
+    assert [c[2] for c in calls] == [budget, budget, 2 * budget,
+                                     2 * budget, *again]
     _assert_same(writer.seen, one.seen)
     assert ref["budgets"] == stats["budgets"]
 
@@ -365,11 +372,12 @@ def test_one_device_keeps_its_names():
     assert routes and routes <= {"empty", "wide"} | {
         f"cluster-{n}" for n in sort_cuda.CLUSTER_SIZES}
     assert sites - {("merge_sort.rows", r) for r in routes} == {
-        ("syncs", "pull-meta"), ("fano.draws", "plain")}
+        ("syncs", "pull-meta"), ("fano.draws", "plain"),
+        ("driver.ahead", "serial"), ("driver.ahead", "queued")}
     assert counters == {"syncs", "pinned_allocs", "pinned_bytes", "retries",
                         "batches", "merge_sort.lanes",
                         "merge_sort.width_lanes", "merge_sort.rows",
-                        "fano.draws", "step.graph"}
+                        "fano.draws", "step.graph", "driver.ahead"}
     assert {s.thread for s in rec.spans} == {"MainThread", "spyral-writer"}
 
 
@@ -385,17 +393,25 @@ def test_each_card_has_its_spans_and_sites():
             "assemble-device",
             "step.prepare", "step.transport", "step.fano", "step.deposit",
             "step.merge", "step.convert"}
+    # a card's turn at each batch it dispatches, which pulls the shard in
+    # flight on it; then a turn that pulls only: card-1's at the tail
+    # batch (of one event, on card-0) and card-0's at the run's end
     steps = [s for s in rec.spans if s.name == "shard.step"]
     assert sorted((s.thread, s.batch) for s in steps) == [
-        ("card-0", 0), ("card-0", 4), ("card-1", 0)]
+        ("card-0", 0), ("card-0", 4), ("card-0", 4), ("card-1", 0),
+        ("card-1", 0)]
     for s in rec.spans:
         if s.thread.startswith("card-") and s.name != "shard.step":
             top = s
             while top.parent is not None:
                 top = top.parent
-            assert top.name == "shard.step" and s.batch == top.batch
-            assert top.thread == s.thread
+            assert top.name == "shard.step" and top.thread == s.thread
+            # a pull of the batch before, in a turn that dispatched
+            assert s.batch == top.batch or (
+                s.name in ("pull-meta", "assemble-device")
+                and (s.batch, top.batch) == (0, 4))
     c = stats["counters"]
+    assert c["driver.ahead"] == {"serial": 1, "queued": 1}
     assert c["shard.events"] == {"card-0": 3, "card-1": 2}
     assert set(c["syncs"]) == {"pull-meta.card-0", "pull-meta.card-1"}
     assert c["syncs"]["pull-meta.card-0"] == 2
@@ -428,9 +444,12 @@ def test_shard_metrics_read_the_cards_spans(bench):
         assert readers[name](run) is None
     steps = sorted((s for s in rec.spans if s.name == "shard.step"),
                    key=lambda s: (s.batch, s.thread))
+    # the tail is on one card; card-1 pulls its shard of batch 0 in a turn
+    # of its own at the tail, and card-0 the tail's at the run's end
     assert [(s.batch, s.thread) for s in steps] == [
-        (0, "card-0"), (0, "card-1"), (4, "card-0")]  # the tail: one card
-    for s, t in zip(steps, (0.010, 0.030, 0.020)):
+        (0, "card-0"), (0, "card-1"), (0, "card-1"), (4, "card-0"),
+        (4, "card-0")]
+    for s, t in zip(steps, (0.010, 0.030, 0.005, 0.020, 0.004)):
         s.device_s = t
     assert readers["shard.step_ms_max_per_batch"](run) == pytest.approx(25.0)
     # each card's turns in a batch: card-0 4 ms, card-1 12 ms in batch 0,
@@ -445,6 +464,22 @@ def test_shard_metrics_read_the_cards_spans(bench):
                    - min(s.start_ns for s in steps))
     assert readers["shard.idle_share_max"](run) == pytest.approx(
         1 - 0.010 / wall)  # card-0's turns took 10 ms, card-1's 12
+
+
+@pytest.mark.parametrize("devices", ["cpu", ["cpu", "cpu"]],
+                         ids=["one_device", "two_shards"])
+def test_ahead_share_reads_the_runs_counter(bench, devices):
+    """The benchmark's ``driver.ahead_share`` on a traced run's recorder:
+    of its two batches without tuning, the first is dispatched with
+    nothing in flight and the second behind it, on one device as over
+    several."""
+    trace = importlib.import_module("pbench.trace").Trace.from_chrome(
+        {"traceEvents": []}, batches=2, dispatches=[])
+    read = bench.cells.metric_reader("driver.ahead_share")
+    stats, rec = _traced(devices)
+    assert stats["counters"]["driver.ahead"] == {"serial": 1, "queued": 1}
+    run = SimpleNamespace(recorder=rec, trace=trace)
+    assert read(run) == pytest.approx(0.5)
 
 
 def test_turns_leave_out_the_waits():
@@ -576,8 +611,14 @@ def test_sharded_run_on_the_card(tmp_path):
         stats = _run(two, devices)
     _assert_same(two.seen, one.seen)
     rec = profiling.last_run()
+    # each card's turns at the probe (its dispatch, then its pull before
+    # any other dispatch), card-0's at the one-event tail and at the run's
+    # end, where it pulls the tail
     steps = [s for s in rec.spans if s.name == "shard.step"]
-    assert len(steps) == 3 and all(s.device_s > 0 for s in steps)
+    assert sorted((s.thread, s.batch) for s in steps) == [
+        ("card-0", 0), ("card-0", 0), ("card-0", 4), ("card-0", 4),
+        ("card-1", 0), ("card-1", 0)]
+    assert all(s.device_s > 0 for s in steps)
     turns = [s for s in rec.spans if s.name == "shard.turn"]
     assert len(turns) > 3 and all(s.device_s >= 0 for s in turns)
     assert rec._pending == []

@@ -71,13 +71,16 @@ class FakeCapture:
             t.copy_(fresh[name])
 
 
-def _simulator(graphs: bool):
+def _config() -> Config:
     gas = GasTarget([(1, 2, 2)], 300.0, nuclear_map)
-    config = Config(
+    return Config(
         DetectorParams(1.0, 45000.0, 2.85, 175000, gas, 0.277, 0.2, 34.0),
         ElectronicsParams(6.25, 900, 1000, 10, 560, 40), PadParams())
+
+
+def _simulator(graphs: bool):
     sim = DetectorSimulator(
-        config, SMOKE["proton_numbers"], SMOKE["mass_numbers"],
+        _config(), SMOKE["proton_numbers"], SMOKE["mass_numbers"],
         engine=EngineParams(n_time_steps=N_STEPS, chunk_steps=100,
                             events_per_batch=E),
         device="cpu")
@@ -250,3 +253,167 @@ def test_the_cpu_step_takes_no_graph_and_keeps_its_rows(bench, name,
         assert np.array_equal(got[ev][1], labels), ev
     assert sum(len(r[0]) for r in ref.values()) > 100 * 3 * E
     assert recorder.counters["step.graph"] == {}
+
+
+# ----------------------------------------------------------------------- #
+# the driver with one batch in flight, over the stand-in's graphs
+
+
+class _Reader:
+    """The first ``n`` committed flagship events."""
+
+    def __init__(self, n: int):
+        self.n_events = n
+        self.proton_numbers = SMOKE["proton_numbers"]
+        self.mass_numbers = SMOKE["mass_numbers"]
+
+    def read_range(self, start, stop):
+        return SMOKE["vertices"][start:stop], SMOKE["momenta"][start:stop]
+
+    def close(self):
+        pass
+
+
+class _PoolWriter:
+    """``write_spyral_pool``: each batch's assembled rows, as seen."""
+
+    def __init__(self):
+        self.seen = []
+
+    def write_spyral_pool(self, spyral, labels, counts, event_numbers,
+                          raw_counts=None):
+        self.seen.append((np.asarray(event_numbers).copy(), spyral.copy(),
+                          labels.copy(), np.asarray(counts).copy()))
+
+    def close(self):
+        pass
+
+
+class _PackedWriter(_PoolWriter):
+    """``write_packed``: each batch's packed rows, as seen."""
+
+    def write_packed(self, packed, counts, event_numbers, raw_counts=None,
+                     wiggle_seed=0):
+        self.seen.append((np.asarray(event_numbers).copy(), packed.copy(),
+                          np.asarray(counts).copy()))
+
+
+def _faked(monkeypatch) -> list:
+    """Every simulator made from here on steps through ``FakeCapture``'s
+    graphs, as on the card: a replay overwrites the graph's outputs when it
+    is dispatched. The stand-ins, in the order made."""
+    fakes = []
+    real = DetectorSimulator.__init__
+
+    def init(self, *args, **kw):
+        real(self, *args, **kw)
+        fakes.append(FakeCapture())
+        self._graphs = StepGraphs(self.device, backend=fakes[-1])
+
+    monkeypatch.setattr(DetectorSimulator, "__init__", init)
+    return fakes
+
+
+def _drive(writer, n: int, **kw) -> dict:
+    from attpc_engine_tpu_torch.detector.driver import run_reader
+
+    auto_tune = kw.pop("auto_tune", True)
+    engine = EngineParams(n_time_steps=N_STEPS, chunk_steps=100,
+                          events_per_batch=E, **kw)
+    return run_reader(_config(), _Reader(n), writer, engine=engine,
+                      seed=11, show_progress=False, device="cpu",
+                      auto_tune=auto_tune)
+
+
+def _eager_batches(writer, n: int, budgets: dict) -> list:
+    """The batches ``writer`` would see from the eager step, each run on
+    its own at ``budgets`` (where nothing overflows), in order."""
+    sim, _ = _simulator(graphs=False)
+    seen = []
+    token = profiling.begin_run(profiling.PhaseTimes())
+    try:
+        for start in range(0, n, E):
+            out = _batch(sim, start, seed=11,
+                         point_budget=budgets["point"],
+                         uniq_budget=budgets["uniq"],
+                         out_budget=budgets["out"], n_steps=N_STEPS)
+            assert not overflow_kinds(StepMeta.decode(out["meta_i32"]))
+            counts = out["spyral_counts"].numpy()
+            packed = out["packed"][:counts.sum()]
+            ids = np.arange(start, start + E)
+            if isinstance(writer, _PackedWriter):
+                seen.append((ids, packed.numpy(), counts))
+            else:
+                spyral, labels = sim.assemble_device(
+                    packed, out["spyral_counts"], torch.from_numpy(ids), 11)
+                seen.append((ids, spyral.numpy(), labels.numpy(), counts))
+    finally:
+        profiling.end_run(token)
+    return seen
+
+
+def _assert_seen(got: list, want: list) -> None:
+    assert len(got) == len(want) and got
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        for x, y in zip(g, w):
+            assert x.dtype == y.dtype and x.shape == y.shape
+            np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.parametrize("writer_cls", [_PoolWriter, _PackedWriter],
+                         ids=["assembled", "packed"])
+def test_a_batch_in_flight_keeps_the_rows_of_the_one_before(
+        monkeypatch, writer_cls):
+    """A tuned run over six batches, each dispatched (eagerly, captured,
+    then replayed, each replay overwriting the graph's outputs at once)
+    before the batch before it is pulled: every batch's rows survive the
+    next replay, and the writer sees the eager step's rows of each batch,
+    in order. ``driver.ahead`` counts the probe and the batch after it
+    serial, every later batch queued."""
+    fakes = _faked(monkeypatch)
+    writer = writer_cls()
+    stats = _drive(writer, 6 * E)
+    monkeypatch.undo()
+    (fake,) = fakes
+    assert fake.captures == 1 and fake.replays >= 3
+    c = stats["counters"]
+    assert c["driver.ahead"] == {"serial": 2, "queued": 4}
+    # the probe's 100-step window climbs once, to the physics window
+    assert c["step.graph"]["replay"] >= 2 and c["retries"] == {"steps": 1}
+    _assert_seen(writer.seen, _eager_batches(writer, 6 * E,
+                                             stats["budgets"]))
+
+
+def test_an_overflow_before_a_batch_in_flight_runs_again_alone(
+        monkeypatch):
+    """From a point budget (320) that batch 0 overflows and batch 1 fits,
+    without tuning, so that batch 1 is in flight, as a captured graph's
+    run, when batch 0 runs again: the retry waits for batch 1 (``syncs``
+    at ``retry``) and drops the graph, batch 1 keeps its rows, and the
+    writer sees every event once with the eager step's rows."""
+    fakes = _faked(monkeypatch)
+    calls = []
+    real = DetectorSimulator.simulate_batch
+
+    def spy(self, vertices, momenta, *args, **kw):
+        calls.append((kw["event_start"], kw["point_budget"]))
+        return real(self, vertices, momenta, *args, **kw)
+
+    monkeypatch.setattr(DetectorSimulator, "simulate_batch", spy)
+    writer = _PoolWriter()
+    stats = _drive(writer, 4 * E, point_budget=320, auto_tune=False)
+    monkeypatch.undo()
+    (fake,) = fakes
+    c = stats["counters"]
+    # batch 1 dispatched at 320 before batch 0 ran again at 640; batches 2
+    # and 3 at 640, the second of them a capture
+    assert calls[:3] == [(0, 320), (E, 320), (0, 640)]
+    assert calls[3:] == [(2 * E, 640), (3 * E, 640)]
+    assert c["retries"] == {"point": 1} and c["syncs"]["retry"] == 1
+    assert c["driver.ahead"] == {"serial": 1, "queued": 3}
+    assert fake.captures == 2 and stats["budgets"]["point"] == 640
+    events = np.concatenate([s[0] for s in writer.seen])
+    np.testing.assert_array_equal(events, np.arange(4 * E))
+    _assert_seen(writer.seen, _eager_batches(writer, 4 * E,
+                                             stats["budgets"]))

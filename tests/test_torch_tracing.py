@@ -15,7 +15,8 @@ What must hold:
   base (Unix seconds rounded down to a multiple of 7,889,238, which
   reproduces the file's ``baseTimeNanoseconds``) between the clock's two
   readings around the span's entry, to the trace's 1 us;
-- a run forced into one "point" overflow counts one retry;
+- a run forced into one "point" overflow counts one retry, and the wait
+  for the batch in flight before it runs again;
 - the merge sort's counters ("merge_sort.*") are the prefixes the steps
   handed K3's live route, and the routes those prefixes take;
 - ``run_reader``'s result and the run manifest hold the counters and spans.
@@ -235,11 +236,12 @@ def test_the_step_alone_enters_its_ranges(traced):
 
 def test_a_point_overflow_counts_one_retry(tmp_path):
     # the first batch's busiest event deposits 404 points, the second's
-    # 287: at 256 the first runs again at 512, and the second fits
-    stats = run(tmp_path, point_budget=256)
+    # 287: at 320 the first runs again at 640, and the second, dispatched
+    # at 320 before the first is pulled, fits; the retry waits for it
+    stats = run(tmp_path, point_budget=320)
     assert stats["counters"]["retries"] == {"point": 1}
-    assert stats["budgets"]["point"] == 512
-    assert stats["counters"]["syncs"]["pull-meta"] == 3
+    assert stats["budgets"]["point"] == 640
+    assert stats["counters"]["syncs"] == {"pull-meta": 3, "retry": 1}
 
 
 @pytest.mark.parametrize("merge", ["sorts", "fused"])
@@ -258,7 +260,7 @@ def test_merge_sort_counters_are_the_prefixes_the_sort_took(
         return real(rows, lanes)
 
     monkeypatch.setattr(deposition, "sort_rows_live", spy)
-    stats = run(tmp_path, point_budget=256, merge=merge)
+    stats = run(tmp_path, point_budget=320, merge=merge)
     c = stats["counters"]
     if merge == "fused":
         assert not seen and c["merge_sort.lanes"] == 0
